@@ -1,4 +1,4 @@
-"""Fleet example — the headline TPU-native capability.
+"""Fleet example — the headline batched capability.
 
 No reference counterpart: one quadrotor controller configuration, a fleet of
 randomized scenarios solved in lockstep over the device mesh, with

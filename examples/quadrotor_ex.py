@@ -90,7 +90,7 @@ def main():
     print("Optimal sequence (state):\n", np.asarray(seq.state))
     print(controller.get_execution_stats())
 
-    # TPU-native extra: a fleet of 1024 randomized starts in one solve
+    # batched extra: a fleet of 1024 randomized starts in one solve
     rng = np.random.default_rng(0)
     x0s = 0.05 * rng.normal(size=(1024, 12))
     res_b = controller.optimize(x0s, np.zeros((1024, 4)))

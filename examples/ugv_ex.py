@@ -66,11 +66,10 @@ def main():
     controller.set_runtime_params({"v_pref": jnp.zeros(2)})
 
     # single-instance f64 run: the defaults are fine.  For f32 FLEET runs
-    # of this nonconvex family use the measured production configuration
-    # (docs/performance.md round-5 UGV section): hessian_reg="eigh",
-    # inner_qp="admm", cold_restart_on_failure=True — obstacle-avoidance
-    # 1.0 at B=256 where the default curvature leaves failure-hold
-    # incursions.
+    # of this nonconvex family use the production configuration
+    # (bench._make_ugv): hessian_reg="eigh", inner_qp="admm",
+    # cold_restart_on_failure=True — obstacle-avoidance 1.0 at B=256 where
+    # the default curvature leaves failure-hold incursions.
     controller.set_optimizer_parameters(
         NLParameters(
             maximum_iteration=100,

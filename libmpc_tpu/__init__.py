@@ -1,10 +1,11 @@
-"""libmpc-tpu: a TPU-native Model Predictive Control framework.
+"""libmpc-tpu: a batched, accelerator-native Model Predictive Control framework.
 
 A from-scratch JAX/XLA re-design with the capabilities of libmpc++
 (nicolapiccinelli/libmpc): linear MPC over a sparse simultaneous QP solved by
 a batched OSQP-equivalent ADMM kernel, and nonlinear MPC over a simultaneous
 NLP solved by an SQP loop with exact autodiff derivatives.  One controller
-object can solve thousands of scenario instances per step on a TPU mesh.
+object can solve thousands of scenario instances per step on a GPU, or on a
+mesh of them.
 """
 
 from .dims import LDims, NLDims

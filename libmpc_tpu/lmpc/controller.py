@@ -85,7 +85,7 @@ def solve_body(
     osqp_setup behavior, LOptimizer.hpp:261).
 
     Assembly and unpack matmuls run at highest precision to match the
-    solver's accuracy (TPU matmuls default to bf16 otherwise).
+    solver's accuracy (IEEE float32 on a GPU, no TF32).
     """
     with jax.default_matmul_precision("highest"):
         return _solve_body_hp(
@@ -549,7 +549,7 @@ class LMPC:
         self._u_meas = jnp.asarray(m, self.dtype)
         return True
 
-    # -- per-instance fleet bounds (TPU-native extension) ------------------
+    # -- per-instance fleet bounds (extension beyond the reference) ------------------
     def set_instance_bounds(
         self,
         state=None,
@@ -750,7 +750,7 @@ class LMPC:
         self._profiler.reset()
 
     def set_stats_mode(self, mode: str) -> None:
-        """TPU-native extension: per-solve stats synchronization policy.
+        """extension beyond the reference: per-solve stats synchronization policy.
 
         ``"sync"`` (default) blocks on the device result inside each
         ``optimize`` so the profiler records true per-solve latency —

@@ -37,10 +37,11 @@ import jax.numpy as jnp
 def _highest_matmul(fn):
     """Run the assembly at full float32 matmul precision.
 
-    TPU matmuls default to bfloat16 passes; letting the QP *data* round at
-    ~1e-4 relative puts an irreducible kappa-sized error in every solution
-    no matter how well the solver does (measured: the quadrotor golden
-    command error floors at 1.2e-4 from the P assembly alone)."""
+    Default-precision float32 matmuls may round through reduced-precision
+    passes (TF32 on a GPU); letting the QP *data* round at ~1e-4 relative
+    puts an irreducible kappa-sized error in every solution no matter how
+    well the solver does (the quadrotor golden command error then floors
+    at ~1e-4 from the P assembly alone)."""
 
     @functools.wraps(fn)
     def wrapped(*args, **kwargs):

@@ -583,7 +583,7 @@ class NLMPC:
                 and params.maximum_iteration > 2 * _CHUNK
             )
             if compact:
-                # cap at ~B/4, in whole 128-lane tiles of the fused kernel
+                # cap at ~B/4, a multiple of 128 instances
                 cap = max(128, (B // 4 // 128) * 128)
                 compact = cap < B
             if compact:
@@ -771,7 +771,7 @@ class NLMPC:
         self._profiler.reset()
 
     def set_stats_mode(self, mode: str) -> None:
-        """TPU-native extension: per-solve stats synchronization policy.
+        """extension beyond the reference: per-solve stats synchronization policy.
 
         ``"sync"`` (default) blocks on the device result inside each
         ``optimize`` so the profiler records true per-solve latency —

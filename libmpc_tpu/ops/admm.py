@@ -5,7 +5,7 @@ Solves, for a *batch* of problem instances sharing one structure::
     minimize    1/2 z'Pz + q'z
     subject to  l <= Az <= u
 
-This is the TPU-native replacement for the OSQP v0.6.3 solver the reference
+This is the batched accelerator replacement for the OSQP v0.6.3 solver the reference
 drives through ``osqp_setup``/``osqp_solve`` each control step
 (reference: include/mpc/LMPC/LOptimizer.hpp:261-284).  Same algorithm family
 (ADMM with rho-scaling, over-relaxation alpha, Ruiz equilibration, adaptive
@@ -16,7 +16,7 @@ the same parameter/termination semantics, but redesigned for the hardware:
   ``q``/``l``/``u`` carry a leading batch axis.  The KKT matrix
   ``M = P + sigma*I + A' R A`` is factorized once per solve and explicitly
   inverted, so every ADMM iteration is three dense matmuls
-  ``(B,n)x(n,n)/(n,m)`` that map straight onto the MXU — no sparse
+  ``(B,n)x(n,n)/(n,m)`` — no sparse
   scatter/gather, no per-instance factorization.
 * All instances iterate in lockstep with per-instance convergence masks
   (frozen once done); termination is checked every ``check_termination``
@@ -194,9 +194,9 @@ class PreparedQP(NamedTuple):
     Mpinv_lo: Optional[jax.Array]  # (n, n) double-single low word of Mpinv:
     # a plain float32 inverse of the ~1/delta^2-conditioned Mp carries
     # ~eps.kappa SYSTEMATIC error, which caps the polish refinement
-    # contraction near 1 on TPU; applying the (hi, lo) pair (two matmuls)
-    # removes the systematic part (setup computes
-    # lo = Mpinv (I - Mp Mpinv) with a compensated residual)
+    # contraction near 1; applying the (hi, lo) pair (two matmuls)
+    # removes the systematic part (setup splits a float64 inverse into
+    # the two float32 words)
 
 
 def _rho_bounds(dtype, params):
@@ -249,7 +249,7 @@ def prepare_qp(P, A, q_ref, eq_mask, loose_mask, params: LParameters,
         # on the fly if it is handed a prepared cache built without it
         if params.polish and params.polish_mode == "shared" \
                 and axis_rows is None:
-            Mpinv, Mpinv_lo = _polish_prep(P, A, eq_mask, axis_rows)
+            Mpinv, Mpinv_lo = _polish_prep(P, A, eq_mask)
         else:
             Mpinv = Mpinv_lo = None
         return PreparedQP(
@@ -259,41 +259,33 @@ def prepare_qp(P, A, q_ref, eq_mask, loose_mask, params: LParameters,
         )
 
 
-def _polish_prep(P, A, eq_mask, axis_rows=None):
+def _polish_prep(P, A, eq_mask):
     """Shared-polish base inverse pair (hi, lo) on the UNSCALED problem
     (the polish operates unscaled): equality rows are active in every
-    instance."""
+    instance.
+
+    ``Mp = P + delta I + delta^-1 Aeq'Aeq`` has condition ~1/delta^2, past
+    what a float32 factorization resolves: a float32 inverse, even Jacobi-
+    scaled and Newton-refined, leaves the polish refinement's contraction
+    near 1, and the device's own Cholesky decides on which side (on the
+    H100 it diverged and every instance fell back to the unpolished
+    iterate).  So the pair is built once per configuration in float64 and
+    split into float32 words: hi = f32(Mp^-1), lo = f32(Mp^-1 - hi)."""
     with jax.default_matmul_precision("highest"):
         n = P.shape[0]
         dtype = P.dtype
-        delta = jnp.asarray(_polish_delta_shared(dtype), dtype)
-        eye = jnp.eye(n, dtype=dtype)
-        w_eq = eq_mask.astype(dtype) / delta
-        Mp = P + delta * eye + _psum_rows((A.T * w_eq[None, :]) @ A, axis_rows)
-        # kappa(Mp) ~ 1/delta^2 overwhelms a raw float32 Cholesky
-        # (eps.kappa > 1).  The spread is diagonal-structural (delta^-1 on
-        # equality-penalized columns vs delta elsewhere), so Jacobi scaling
-        # tames it; two Newton passes X <- X(2I - Ms X) on the scaled
-        # matrix then square the factorization residual down to the
-        # float32 floor for a few (n, n) matmuls at setup time.
-        s = jax.lax.rsqrt(jnp.maximum(jnp.diagonal(Mp), 1e-30))
-        Ms = Mp * s[:, None] * s[None, :]
-        Msinv = jax.scipy.linalg.cho_solve(
-            jax.scipy.linalg.cho_factor(Ms), eye
-        )
-        for _ in range(2):
-            Msinv = Msinv @ (2.0 * eye - Ms @ Msinv)
-        Mpinv = Msinv * s[:, None] * s[None, :]
-        # double-single low word: E = I - Mp Mpinv via a compensated
-        # product (the plain product would round at exactly the scale of
-        # the error being measured), then lo = Mpinv E.  Applying
-        # (Mpinv + Mpinv_lo) removes the eps.kappa systematic error of the
-        # stored float32 inverse — the polish refinement's contraction
-        # depends on it (see PreparedQP.Mpinv_lo).
-        e_hi, e_lo = _comp_mm(Mp, Mpinv)
-        E = (eye - e_hi) - e_lo
-        Mpinv_lo = Mpinv @ E
-        return Mpinv, Mpinv_lo
+        delta = _polish_delta_shared(dtype)
+        with jax.enable_x64(True):
+            f64 = jnp.float64
+            P64, A64 = P.astype(f64), A.astype(f64)
+            w_eq = eq_mask.astype(f64) / delta
+            Mp = P64 + delta * jnp.eye(n, dtype=f64) + (A64.T * w_eq) @ A64
+            inv = jax.scipy.linalg.cho_solve(
+                jax.scipy.linalg.cho_factor(Mp), jnp.eye(n, dtype=f64)
+            )
+            hi = inv.astype(dtype)
+            lo = (inv - hi.astype(f64)).astype(dtype)
+        return hi, lo
 
 
 def _build_kkt_inverse(P, A, rho_vec, sigma, axis_rows=None):
@@ -301,7 +293,7 @@ def _build_kkt_inverse(P, A, rho_vec, sigma, axis_rows=None):
     M = P + sigma*I + A' diag(rho) A.
 
     An explicit inverse (rather than keeping a Cholesky factor) turns every
-    ADMM x-update into a plain matmul: ideal for the MXU and for very wide
+    ADMM x-update into a plain matmul: ideal for very wide
     batches.  M is SPD so the inverse is well-defined.  M is returned too so
     float32 runs can iteratively refine the x-update against it.  With
     row-sharded A the per-shard contributions psum into the replicated M.
@@ -310,20 +302,8 @@ def _build_kkt_inverse(P, A, rho_vec, sigma, axis_rows=None):
     eye = jnp.eye(n, dtype=P.dtype)
     AtRA = _psum_rows((A.T * rho_vec[None, :]) @ A, axis_rows)
     M = P + sigma * eye + AtRA
-    # spd_inverse: identical Cholesky solve when unbatched (the shared-
-    # factorization LMPC path); under vmap (the per-instance SQP inner QPs)
-    # it routes to the fused Pallas kernel / blocked Schur recursion
-    # instead of XLA's slow in-loop cholesky+triangular_solve expansion
     Minv = batched_linalg.spd_inverse(M)
     return M, Minv
-
-
-def _pallas_supported(B: int, n: int, m: int, dtype) -> bool:
-    try:
-        from . import admm_pallas
-    except ImportError:  # pallas unavailable in this environment
-        return False
-    return admm_pallas.supported(B, n, m, dtype)
 
 
 class _LoopState(NamedTuple):
@@ -684,40 +664,12 @@ def _admm_loop(P, A, qs, ls, us, x0, y0, rho0, rho_mask_eq, rho_mask_loose,
 
     n_blocks = max(1, (n_iters + check_every - 1) // check_every)
 
-    # TPU float32 fast path: run the whole iteration block inside one
-    # VMEM-resident Pallas kernel (batch tile stays on-chip for all
-    # check_every iterations — ~K x less HBM traffic than the XLA loop)
-    use_pallas = (
-        params.use_pallas
-        and axis_rows is None
-        and jax.default_backend() == "tpu"
-        and _pallas_supported(B, n, m, dtype)
-    )
-
-    if use_pallas:
-        from . import admm_pallas
-
-        def block(state: _LoopState, qs, ls, us):
-            x, z, y = admm_pallas.fused_iterations(
-                state.x, state.z, state.y, state.done, qs, ls, us,
-                A, state.M, state.Minv, rho_vec_of(state.rho),
-                sigma=sigma_v, alpha=params.alpha, k_iters=check_every,
-                refine=f32 and params.x_refine,
-            )
-            state = state._replace(
-                x=x, z=z, y=y,
-                iters=state.iters + jnp.where(state.done, 0, check_every),
-            )
-            return termination_check(state, qs, ls, us)
-
-    else:
-
-        def block(state: _LoopState, qs, ls, us):
-            state = jax.lax.fori_loop(
-                0, check_every, lambda _, s: one_iteration(s, qs, ls, us),
-                state,
-            )
-            return termination_check(state, qs, ls, us)
+    def block(state: _LoopState, qs, ls, us):
+        state = jax.lax.fori_loop(
+            0, check_every, lambda _, s: one_iteration(s, qs, ls, us),
+            state,
+        )
+        return termination_check(state, qs, ls, us)
 
     budget = jnp.asarray(iter_budget, jnp.int32)
 
@@ -838,7 +790,7 @@ def _polish_delta_shared(dtype) -> float:
     while the float32 factorization error of the shared base
     ``Mp = P + delta I + delta^-1 Aeq'Aeq`` (condition ~1/delta^2) grows as
     delta shrinks.  1e-2 keeps the factorization comfortably inside float32
-    (a smaller delta makes the TPU Cholesky residual O(1) and the
+    (a smaller delta makes the float32 Cholesky residual O(1) and the
     refinement diverges outright); the resulting modest ~0.7/pass
     contraction is paid for with MANY incremental refinement passes, which
     the compensated-residual scheme makes cheap and exact-residual."""
@@ -848,14 +800,13 @@ def _polish_delta_shared(dtype) -> float:
 def _split12(a):
     """Dekker split of float32 into an 8-bit-mantissa head and a tail.
 
-    The head is exactly bfloat16-representable, which matters on TPU: the
-    MXU's float32 path decomposes each operand into bfloat16 passes, so a
-    head x head product is a SINGLE exact bf16 x bf16 pass (8+8 mantissa
-    bits; a 12-bit Dekker head would span two passes whose float32
-    accumulation rounds, destroying the compensation — measured).  The
-    wider tails only enter the low word through plain matmuls whose
-    ~n.eps.2^-8 relative error is below the compensation target.
-    Elementwise float32 ops are IEEE on the VPU."""
+    The head is exactly bfloat16-representable, so a head x head product
+    is exact even where a float32 matmul decomposes each operand into
+    bfloat16 passes (8+8 mantissa bits; a 12-bit Dekker head would span two
+    passes whose float32 accumulation rounds, destroying the
+    compensation).  The wider tails only enter the low word through plain
+    matmuls whose ~n.eps.2^-8 relative error is below the compensation
+    target."""
     c = a * 65537.0  # 2^16 + 1 -> 8-bit head, 16-bit tail
     hi = c - (c - a)
     return hi, a - hi
@@ -933,7 +884,7 @@ def _polish_accept(P, A, q, l, u, sol_x, sol_y, sol_z, x_pol, y_pol,
 def _polish_shared(P, A, q, l, u, sol_x, sol_y, sol_z, params: LParameters,
                    eq_mask, prepared: PreparedQP):
     """Active-set polish with ONE shared factorization + exact per-instance
-    Woodbury corrections — the TPU-first polish.
+    Woodbury corrections — the batch-first polish.
 
     The per-instance active-set system is
     ``K_i = Mp + delta^-1 U_i U_i'`` where ``Mp = P + delta I +
@@ -946,9 +897,8 @@ def _polish_shared(P, A, q, l, u, sol_x, sol_y, sol_z, params: LParameters,
         K^-1 r = Mpinv r - Mpinv U (delta I + U' Mpinv U)^-1 U' Mpinv r
 
     with the per-instance ``U`` terms formed as dense einsums over the
-    once-gathered active rows ``A_g`` (scatters and cross-row gathers cost
-    6-40 ms at B=16k on TPU; the einsum contractions are fractions of a
-    millisecond).
+    once-gathered active rows ``A_g`` (dense contractions instead of
+    batched scatters and cross-row gathers).
 
     Outer refinement against the TRUE optimality system (as in the dense
     mode) contracts the O(delta) penalty bias each pass.  Instances with
@@ -976,16 +926,15 @@ def _polish_shared(P, A, q, l, u, sol_x, sol_y, sol_z, params: LParameters,
     active, bnd, w = _polish_active_set(l, u, sol_y, eq_mask, dtype, delta)
 
     # per-instance indices of active inequality rows (top_k compaction —
-    # any order works, and top_k is far cheaper than a full argsort on
-    # TPU), padded with inactive rows masked out of the capacitance
+    # any order works, and top_k is cheaper than a full argsort),
+    # padded with inactive rows masked out of the capacitance
     extra = active & ~eq_mask[None, :]
     _, idx = jax.lax.top_k(extra.astype(dtype), k_max)  # (B, k)
     valid = jnp.take_along_axis(extra, idx, axis=-1)  # (B, k)
 
     # gather the active-inequality rows ONCE; all per-pass index work then
-    # becomes dense einsums over A_g — scatters, take_along gathers and the
-    # (B, k, m) HAA slices each cost 6-40 ms at B=16k on TPU, while the
-    # equivalent einsum contractions are fractions of a millisecond
+    # becomes dense einsums over A_g instead of scatters, take_along
+    # gathers and (B, k, m) slices
     A_g = jnp.where(
         valid[:, :, None], jnp.take(A, idx, axis=0), 0.0
     )  # (B, k, n), masked rows zeroed
@@ -997,12 +946,9 @@ def _polish_shared(P, A, q, l, u, sol_x, sol_y, sol_z, params: LParameters,
     eye_k = jnp.eye(k_max, dtype=dtype)
     C = Ck + delta * eye_k[None] \
         + jnp.where(valid, 0.0, 1.0)[:, :, None] * eye_k[None]
-    # batched small SPD inverse: fused Pallas kernel on TPU (XLA's batched
-    # Cholesky costs ~100 ms at (16384, 40, 40)); K_solve then applies it
-    # as one batched matvec per call
-    from . import batched_linalg
-
-    Cinv = batched_linalg.chol_inverse(C)
+    # explicit capacitance inverse: K_solve applies it as one batched
+    # matvec per call
+    Cinv = batched_linalg.spd_inverse(C)
 
     def K_solve(r):  # (B, n) -> exact K_i^-1 r
         t = mp_solve(r)
@@ -1168,9 +1114,10 @@ def admm_solve(
     Returns a :class:`QPSolution` with a leading batch axis (squeezed back if
     the inputs were unbatched).
 
-    All matmuls run at ``highest`` precision: TPU matmuls default to bf16
-    passes, which is catastrophic for an iterative solver converging to 1e-4
-    residuals (the factorization alone loses all significant digits).
+    All matmuls run at ``highest`` precision (IEEE float32 on a GPU, no
+    TF32): reduced-precision passes are catastrophic for an iterative
+    solver converging to 1e-4 residuals (the factorization alone loses all
+    significant digits).
     """
     with jax.default_matmul_precision("highest"):
         return _admm_solve_hp(
@@ -1334,7 +1281,7 @@ def _admm_solve_hp(
             if prepared.Mpinv is None:
                 # prepared cache built under no-polish params: build the
                 # base inverse here (traced once per compiled program)
-                mp_hi, mp_lo = _polish_prep(P, A, eq_mask, axis_rows)
+                mp_hi, mp_lo = _polish_prep(P, A, eq_mask)
                 prepared = prepared._replace(Mpinv=mp_hi, Mpinv_lo=mp_lo)
             x_p, y_p, z_p, pri_p, dua_p = _polish_shared(
                 P, A, q, l, u, x, y, z, params, eq_mask, prepared

@@ -1,227 +1,20 @@
-"""Batched small dense linear algebra as fused Pallas kernels.
+"""Explicit inverse of small SPD matrices.
 
-XLA's batched ``cholesky``/``triangular_solve`` on TPU lower to sequential
-per-matrix loops that cost ~100 ms for a (16384, 40, 40) factorization —
-three orders of magnitude over the arithmetic.  These kernels use the
-batch-in-lanes layout (matrix dims on the major/sublane axes, a 128-wide
-batch tile on the lane axis) so one factorization step is a single vector
-operation across 128 instances, the same design as the fused inner-QP
-kernel (ops/qp_inner_pallas.py).
-
-Provided: :func:`chol_inverse` — explicit inverse of a batch of small SPD
-matrices (used by the LMPC shared polish for its Woodbury capacitance
-systems, ops/admm.py::_polish_shared).
-
-On CPU backends the XLA implementation is fast (LAPACK); the kernel is
-TPU-only by default with an ``interpret`` escape hatch for tests.
+Several solvers keep an explicit inverse instead of a factor, so that every
+later solve is one matrix product: the ADMM KKT inverse (ops/admm.py), the
+f32 interior-point Newton systems (ops/pdip.py), the stage pivots of the
+banded KKT factorization (ops/trajectory_kkt.py) and the shared polish's
+capacitance systems.  Leading axes are batch axes; under ``vmap`` XLA lowers
+the Cholesky factor and the two triangular solves to batched GPU routines.
 """
 
 from __future__ import annotations
 
-import functools
-
-import jax
 import jax.numpy as jnp
-from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
-
-TILE_B = 128
-
-# VMEM budget for the kernel's working set.  The kernel holds the full
-# (k, k, TILE_B) matrix tile in VMEM six times over: input + output windows
-# (double-buffered by the pipeline -> 2x each) plus two scratch buffers.
-# The binding limit is NOT the 128 MB core VMEM but the ~16 MB *scoped*
-# allocation budget the TPU compiler enforces for kernels inside loop
-# bodies (where every call site of this kernel lives — SQP/ADMM while
-# loops); measured: a (128,128,128) window set is rejected with "Scoped
-# allocation 31.68M, limit 16.00M".  8 MB keeps the same headroom stance
-# as ops/qp_inner_pallas._VMEM_BUDGET_BYTES.
-_VMEM_BUDGET_BYTES = 8 * 1024 * 1024
-
-# Diagonal-block size of the blocked Schur-complement inverse: the largest
-# proven-in-production kernel size under the budget (the LMPC polish
-# Woodbury systems run at k=48 inside the ADMM while loop on hardware).
-_BLOCK_K = 48
+import jax.scipy.linalg as jsl
 
 
-def kernel_supported(k: int) -> bool:
-    """Whether the fused Pallas kernel's VMEM working set fits for matrix
-    dimension ``k`` (~k <= 52 at TILE_B=128 against the scoped-VMEM
-    budget).  Callers with larger systems get the blocked Schur recursion
-    (on TPU) or the XLA Cholesky path instead of a lowering failure (the
-    same degrade-gracefully contract as ops/qp_inner_pallas.supported)."""
-    return 6 * k * k * TILE_B * 4 <= _VMEM_BUDGET_BYTES
-
-
-def _chol_inv_kernel(C_ref, out_ref, L_s, inv_s, *, k):
-    f1 = jnp.float32
-    eye_cols = [
-        jax.lax.broadcasted_iota(jnp.int32, (k, 1), 0) == j for j in range(k)
-    ]
-
-    # Cholesky via right-looking full-matrix rank-1 updates.  The symmetric
-    # full update zeroes eliminated columns, so the saved row satisfies
-    # L_s[p, j] = L[j, p] for j >= p: L_s is the upper factor U = L' stored
-    # row-wise (see ops/qp_inner_pallas.py for the derivation).
-    out_ref[:, :, :] = C_ref[:]  # scratch the input into the output buffer
-    for p in range(k):
-        row = out_ref[p, :, :]  # (k, TB)
-        dkk = row[p : p + 1, :]
-        inv = jax.lax.rsqrt(jnp.maximum(dkk, 1e-30))
-        lrow = row * inv
-        L_s[p, :, :] = lrow
-        out_ref[:, :, :] = out_ref[:] - lrow[None, :, :] * lrow[:, None, :]
-
-    # forward (U' Y = I): Y[p] = (I[p] - sum_{j<p} U[j,p] Y[j]) / U[p,p]
-    for p in range(k):
-        if p:
-            acc = (L_s[:p, p : p + 1, :] * inv_s[:p, :, :]).sum(axis=0)
-        else:
-            acc = jnp.zeros((k, TILE_B), f1)
-        rhs_row = eye_cols[p].astype(f1)
-        inv_s[p, :, :] = (rhs_row - acc) / L_s[p, p : p + 1, :]
-    # backward (U X = Y): X[p] = (Y[p] - sum_{j>p} U[p,j] X[j]) / U[p,p]
-    for p in range(k - 1, -1, -1):
-        if p < k - 1:
-            Urow = L_s[p, p + 1 :, :]  # (k-p-1, TB)
-            acc = (Urow[:, None, :] * inv_s[p + 1 :, :, :]).sum(axis=0)
-        else:
-            acc = jnp.zeros((k, TILE_B), f1)
-        inv_s[p, :, :] = (inv_s[p, :, :] - acc) / L_s[p, p : p + 1, :]
-
-    out_ref[:, :, :] = inv_s[:, :, :]
-
-
-@functools.partial(jax.jit, static_argnames=("interpret",))
-def _chol_inverse_pallas(C, interpret=False):
-    B, k, _ = C.shape
-    dtype = jnp.float32
-    Bp = ((B + TILE_B - 1) // TILE_B) * TILE_B
-    pad = Bp - B
-    C = C.astype(dtype)
-    if pad:
-        eye = jnp.broadcast_to(jnp.eye(k, dtype=dtype), (pad, k, k))
-        C = jnp.concatenate([C, eye], axis=0)
-    C_t = jnp.moveaxis(C, 0, -1)  # (k, k, Bp)
-
-    spec = pl.BlockSpec(
-        (k, k, TILE_B), lambda i: (0, 0, i), memory_space=pltpu.VMEM
-    )
-    out = pl.pallas_call(
-        functools.partial(_chol_inv_kernel, k=k),
-        grid=(Bp // TILE_B,),
-        in_specs=[spec],
-        out_specs=spec,
-        out_shape=jax.ShapeDtypeStruct((k, k, Bp), dtype),
-        scratch_shapes=[
-            pltpu.VMEM((k, k, TILE_B), dtype),
-            pltpu.VMEM((k, k, TILE_B), dtype),
-        ],
-        interpret=interpret,
-    )(C_t)
-    return jnp.moveaxis(out, -1, 0)[:B]
-
-
-def _chol_inverse_blocked(C, interpret=False):
-    """Explicit inverse of large batched SPD matrices by 2x2 block Schur
-    recursion: the leading (_BLOCK_K, _BLOCK_K) diagonal block inverts in
-    the fused Pallas kernel, the trailing Schur complement recurses, and
-    everything else is batched matmuls on the MXU.
-
-    This replaces XLA's cholesky+triangular_solve expansion for k past the
-    kernel's VMEM gate — measured on TPU v5e (nz=301 oscillator NLMPC,
-    B=128): the XLA path costs ~22 ms per interior-point iteration, ~88%
-    of the whole SQP solve; the blocked inverse is matmul-bound.
-
-        [A  B]^-1  =  [Ai + AiB Si AiB'   -AiB Si]
-        [B' D]        [   -Si AiB'            Si ],
-    with Ai = A^-1, S = D - B' Ai B, Si = S^-1, AiB = Ai B.
-    """
-    k = C.shape[-1]
-    if kernel_supported(k):
-        return _chol_inverse_pallas(C, interpret=interpret)
-    k1 = _BLOCK_K
-    A = C[:, :k1, :k1]
-    Bb = C[:, :k1, k1:]
-    D = C[:, k1:, k1:]
-    Ai = _chol_inverse_blocked(A, interpret=interpret)
-    AiB = Ai @ Bb
-    S = D - jnp.swapaxes(Bb, -1, -2) @ AiB
-    S = 0.5 * (S + jnp.swapaxes(S, -1, -2))
-    Si = _chol_inverse_blocked(S, interpret=interpret)
-    AiBSi = AiB @ Si
-    tl = Ai + AiBSi @ jnp.swapaxes(AiB, -1, -2)
-    top = jnp.concatenate([tl, -AiBSi], axis=-1)
-    bot = jnp.concatenate([-jnp.swapaxes(AiBSi, -1, -2), Si], axis=-1)
-    return jnp.concatenate([top, bot], axis=-2)
-
-
-@jax.custom_batching.custom_vmap
 def spd_inverse(M):
-    """Explicit inverse of an SPD matrix — written per-instance; under
-    ``vmap`` the batch routes to the fused Pallas Cholesky kernel (small k)
-    or the blocked Schur recursion (large k).  The TPU-friendly alternative
-    to factor+triangular-solve: every downstream solve becomes a matmul
-    (same design as the LMPC ADMM kernel's explicit inverse,
-    ops/admm.py::_prepare)."""
-    import jax.scipy.linalg as jsl
-
-    eye = jnp.eye(M.shape[-1], dtype=M.dtype)
+    """Inverse of the SPD matrix (or batch of matrices) ``M`` (..., k, k)."""
+    eye = jnp.broadcast_to(jnp.eye(M.shape[-1], dtype=M.dtype), M.shape)
     return jsl.cho_solve(jsl.cho_factor(M), eye)
-
-
-@spd_inverse.def_vmap
-def _spd_inverse_vmap(axis_size, in_batched, M):
-    M = M if in_batched[0] else jnp.broadcast_to(M[None], (axis_size,) + M.shape)
-    return chol_inverse(M), True
-
-
-@jax.custom_batching.custom_vmap
-def spd_solve(M, rhs):
-    """Solve ``M x = rhs`` for SPD ``M`` — written per-instance, and under
-    ``vmap`` the whole batch routes to the fused Pallas Cholesky kernel
-    (XLA's batched LU/Cholesky lower to per-matrix sequential loops that
-    cost milliseconds at MPC batch sizes; measured 5.7 ms per SQP
-    iteration for the second-order-correction solve alone)."""
-    import jax.scipy.linalg as jsl
-
-    return jsl.cho_solve((jnp.linalg.cholesky(M), True), rhs)
-
-
-@spd_solve.def_vmap
-def _spd_solve_vmap(axis_size, in_batched, M, rhs):
-    M = M if in_batched[0] else jnp.broadcast_to(M[None], (axis_size,) + M.shape)
-    rhs = (
-        rhs if in_batched[1]
-        else jnp.broadcast_to(rhs[None], (axis_size,) + rhs.shape)
-    )
-    Minv = chol_inverse(M)
-    return jnp.einsum("bij,bj->bi", Minv, rhs.astype(Minv.dtype)).astype(
-        rhs.dtype
-    ), True
-
-
-def chol_inverse(C, *, force_kernel: bool = False, interpret: bool = False):
-    """Inverse of a batch of small SPD matrices ``C`` (B, k, k).
-
-    TPU: one fused Pallas kernel per 128-instance tile (float32); matrices
-    past the kernel's VMEM budget (``kernel_supported``) use the blocked
-    Schur recursion (Pallas diagonal blocks + MXU matmuls) instead of
-    failing to lower.
-    CPU/other backends (and float64 inputs): XLA Cholesky + triangular
-    solves, which are fast there.
-    """
-    on_tpu = jax.default_backend() == "tpu"
-    if (on_tpu or force_kernel) and C.dtype == jnp.float32:
-        interp = interpret or not on_tpu
-        if kernel_supported(C.shape[-1]):
-            return _chol_inverse_pallas(C, interpret=interp)
-        return _chol_inverse_blocked(C, interpret=interp)
-    L = jnp.linalg.cholesky(C)
-    eye = jnp.broadcast_to(jnp.eye(C.shape[-1], dtype=C.dtype), C.shape)
-    import jax.scipy.linalg as jsl
-
-    y = jsl.solve_triangular(L, eye, lower=True)
-    return jsl.solve_triangular(
-        jnp.swapaxes(L, -1, -2), y, lower=False
-    )

@@ -4,12 +4,10 @@ The SQP inner QP (ops/sqp.py) is tiny — tens of variables — but must be
 solved to good accuracy at every SQP iteration.  The batched ADMM kernel
 (ops/admm.py) is the right engine for the large LMPC QPs (one shared
 factorization, thousands of instances), but for the *vmapped* SQP
-subproblems its hundreds of lockstep iterations are pure sequential latency
-on TPU: profiling shows the inner ADMM at ~80% of an NLMPC solve.  A
+subproblems its hundreds of lockstep iterations are sequential latency.  A
 Mehrotra predictor-corrector IPM converges in ~15-25 iterations regardless
 of warm start or conditioning; each iteration is two small Cholesky
-factorizations plus matvecs, all of which batch beautifully under ``vmap``
-(measured: 1024 x chol(26) in 0.05 ms on one TPU chip).
+factorizations plus matvecs, all of which batch under ``vmap``.
 
 Problem form (one instance; ``vmap`` supplies the batch axis)::
 
@@ -134,15 +132,11 @@ def pdip_solve(
             mask_i, jnp.minimum(lam / jnp.maximum(s, 1e-30), cap), 0.0
         )
         H = B + (Ji.T * lam_s[None, :]) @ Ji + reg_p * jnp.eye(nz, dtype=dtype)
-        # float32 accelerator path: EXPLICIT inverses (batched Pallas
-        # Cholesky kernel / blocked Schur recursion under vmap,
-        # ops/batched_linalg.spd_inverse) so every downstream solve is an
-        # MXU matmul.  XLA's cholesky+triangular_solve expansion inside the
-        # vmapped SQP loop measured ~22 ms per IPM iteration at nz=301 —
-        # ~88% of the whole oscillator NLMPC solve; the barrier cap above
-        # bounds the conditioning so the f32 inverse stays accurate enough
-        # for the predictor-corrector (which re-derives residuals exactly).
-        # float64 (CPU parity) keeps the factor+solve path.
+        # float32: EXPLICIT inverses, so every downstream solve (predictor,
+        # corrector, Schur pieces) is one matrix product; the barrier cap
+        # above bounds the conditioning so the f32 inverse stays accurate
+        # enough for the predictor-corrector (which re-derives residuals
+        # exactly).  float64 keeps the factor+solve path.
         if f32:
             Hinv = batched_linalg.spd_inverse(H)
             _solve = lambda r: Hinv @ r

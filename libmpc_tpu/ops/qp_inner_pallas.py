@@ -1,31 +1,28 @@
-"""Fused batched small-QP ADMM solver — one Pallas kernel per solve.
+"""Fused batched small-QP ADMM solver — one Pallas (Triton) kernel per solve.
 
 The SQP inner QP (ops/sqp.py) is a *per-instance* problem: every batch
 element has its own Hessian ``P`` and constraint matrix ``A`` (tens of rows
-and columns).  The XLA path (``vmap`` of :func:`ops.admm.admm_solve`) is
-correct but latency-bound on TPU: each of its hundreds of lockstep
-iterations lowers to many small kernels, and per-kernel overhead (~tens of
-microseconds on a TPU program of this size) dwarfs the arithmetic.  This
-module runs the ENTIRE solve — KKT assembly, Cholesky factorization,
-explicit inverse, the ADMM iteration loop with periodic convergence checks
-and per-instance freeze — as a single Pallas kernel, so the sequential-op
-overhead is paid once instead of thousands of times.
+and columns).  The XLA path (``vmap`` of :func:`ops.admm.admm_solve`) runs
+each of its hundreds of lockstep iterations as several small kernels over
+the whole batch, and the batch iterates until its slowest instance
+converges.  This module runs the ENTIRE solve — KKT assembly, explicit
+inverse, the ADMM iteration loop with periodic convergence checks and
+adaptive rho — inside one GPU kernel.
 
-Layout: batch-in-lanes.  All arrays are transposed so the batch tile is the
-trailing (lane) dimension — a (m, n, TILE_B) constraint tensor holds lane
-``b``'s matrix in ``[:, :, b]``.  Matrix dimensions live on the major /
-sublane axes where static Python loops can index them, and every operation
-is vectorized across the 128-lane batch tile: a Cholesky factorization of
-1024 27x27 matrices costs 27 sequential steps of (27,27,128) vector work
-instead of 1024 factorizations.
+Layout: batch axis leading, ``tile`` instances per program.  Every matrix
+is padded to power-of-two widths (Triton's block rule) and stays in
+registers for the whole solve; nothing is carried between programs, so
+programs run in any order and each one stops as soon as its own instances
+have converged.  Matrix rows and columns are selected with masked
+reductions (Triton has no register indexing), and all arithmetic is
+float32 multiply-and-reduce: no tensor-core (TF32) rounding enters.
 
 Algorithm (identical to ops/admm.py's ``one_iteration``, reference OSQP
 v0.6.3 / LOptimizer.hpp): x-update through the explicit KKT inverse with
 one refinement pass, over-relaxation ``alpha``, box projection, exact-zero
-inactive duals.  No Ruiz scaling and no adaptive rho — the SQP subproblems
-are eigenvalue-floored convexified Hessians with O(1) constraint rows, and
-the warm-started iterations converge at fixed rho; the XLA path remains the
-reference behavior for everything else.
+inactive duals, adaptive rho per instance.  The inverse is an in-place
+Gauss-Jordan sweep, which needs no pivoting on the SPD KKT matrix.  Ruiz
+equilibration runs once per problem in XLA before the kernel.
 """
 
 from __future__ import annotations
@@ -35,265 +32,209 @@ import functools
 import jax
 import jax.numpy as jnp
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as plt
 
-TILE_B = 128
 INF_BOUND = 1e18
-_VMEM_BUDGET_BYTES = 8 * 1024 * 1024  # of the ~16MB/core (see admm_pallas)
+# instances per program and warps per program, chosen on the card at the
+# Van der Pol widths: one instance on one warp was fastest of (1, 1),
+# (1, 2), (1, 4), (2, 2), (2, 4), (4, 4), (4, 8) (PERF.md)
+TILE_B = 1
+NUM_WARPS = 1
+# register budget: M, Minv, P and A of every instance stay resident for the
+# whole solve; past these padded widths the kernel spills
+_MAX_N, _MAX_M = 32, 64
 
 
-def _tile_bytes(n: int, m: int) -> int:
-    """Estimated VMEM footprint of one TILE_B-lane grid step (float32).
-
-    Inputs (P, A, q, l, u, rho, x0, y0, dinv, einv, cinv) and outputs
-    (x, y, z, meta) are double-buffered by the pipeline; scratch (M, Minv, L
-    at (n, n, TILE_B) plus the x/z/y/done/rho vectors) is allocated once.
-    """
-    words_in = n * n + m * n + 3 * n + 5 * m + 1
-    words_out = n + 2 * m + 4
-    words_scratch = 3 * n * n + n + 3 * m + 1
-    return 4 * TILE_B * (2 * (words_in + words_out) + words_scratch)
+def _pow2(k: int) -> int:
+    return 1 << max(k - 1, 0).bit_length()
 
 
 def supported(n: int, m: int) -> bool:
-    """Whether the fused kernel fits this (n, m) subproblem in VMEM.
-
-    The dominant term is the 3x (n, n, TILE_B) factorization scratch —
-    quadratic in the decision size.  Callers (ops/sqp.py) must fall back to
-    an XLA engine when this returns False: a too-large kernel fails at
-    Mosaic lowering on real hardware, which a user-facing solve must never
-    do.  Mirrors ops/admm_pallas.supported() for the LMPC kernel.
-    """
-    return _tile_bytes(n, m) < _VMEM_BUDGET_BYTES
+    """Whether the fused kernel takes an (n, m) subproblem (padded widths
+    within the register budget).  Larger problems use an XLA engine."""
+    return _pow2(n) <= _MAX_N and _pow2(m) <= _MAX_M
 
 
 def _kernel(
     P_ref, A_ref, q_ref, l_ref, u_ref, rho_ref, x0_ref, y0_ref,
     dinv_ref, einv_ref, cinv_ref,
     x_out, y_out, z_out, meta_out,
-    M_s, Minv_s, L_s, x_s, z_s, y_s, done_s, rho_s,
-    *, n, m, sigma, alpha, eps_abs, eps_rel, max_iter, check_every, refine,
+    *, sigma, alpha, eps_abs, eps_rel, n_blocks, check_every, refine,
 ):
     f1 = jnp.float32
-    eye_cols = [
-        jax.lax.broadcasted_iota(jnp.int32, (n, 1), 0) == j for j in range(n)
-    ]
+    P = P_ref[...]  # (T, n, n)
+    A = A_ref[...]  # (T, m, n)
+    q = q_ref[...]  # (T, n)
+    lo = l_ref[...]  # (T, m)
+    hi = u_ref[...]
+    dinv = dinv_ref[...]
+    einv = einv_ref[...]
+    cinv = cinv_ref[...]  # (T, 1)
+    T, m, n = A.shape
+    i_n = jax.lax.broadcasted_iota(jnp.int32, (1, n), 1)
+    i_m = jax.lax.broadcasted_iota(jnp.int32, (1, m), 1)
+    row_n = jax.lax.broadcasted_iota(jnp.int32, (1, n, n), 1)
+    col_n = jax.lax.broadcasted_iota(jnp.int32, (1, n, n), 2)
+    row_m = jax.lax.broadcasted_iota(jnp.int32, (1, m, n), 1)
+    eye = (row_n == col_n).astype(f1)
 
-    def factorize():
-        """(Re)build M = P + sigma I + A' diag(rho) A from rho_s, factor it
-        and store the explicit inverse.  Fully vectorized across lanes —
-        one factorization pass costs ~4n sequential vector steps."""
-        # ---- assemble M --------------------------------------------------
-        Arho = A_ref[:] * rho_s[:, :][:, None, :]  # (m, n, TB)
-        for i in range(n):
-            # M[i, :] = P[i, :] + sigma e_i + sum_r A[r, i] * Arho[r, :]
-            col_i = (Arho * A_ref[:, i : i + 1, :]).sum(axis=0)  # (n, TB)
-            M_s[i, :, :] = (
-                P_ref[i, :, :] + sigma * eye_cols[i].astype(f1) + col_i
+    def mv(Mat, v):  # (T, r, c) @ (T, c) -> (T, r)
+        return jnp.sum(Mat * v[:, None, :], axis=2)
+
+    def tmv(Mat, v):  # (T, r, c)' @ (T, r) -> (T, c)
+        return jnp.sum(Mat * v[:, :, None], axis=1)
+
+    def amax(v):
+        return jnp.max(jnp.abs(v), axis=1, keepdims=True)
+
+    def factorize(rho):
+        """M = P + sigma I + A' diag(rho) A and its explicit inverse."""
+
+        def add_row(r, M):
+            a_r = jnp.sum(jnp.where(row_m == r, A, 0.0), axis=1)  # (T, n)
+            rho_r = jnp.sum(jnp.where(i_m == r, rho, 0.0), axis=1, keepdims=True)
+            return M + (rho_r * a_r)[:, :, None] * a_r[:, None, :]
+
+        M = jax.lax.fori_loop(0, m, add_row, P + sigma * eye)
+
+        def sweep(k, a):
+            # in-place Gauss-Jordan step on pivot k (SPD: no pivoting)
+            rk = row_n == k
+            ck = col_n == k
+            row = jnp.sum(jnp.where(rk, a, 0.0), axis=1)  # a[:, k, :]
+            col = jnp.sum(jnp.where(ck, a, 0.0), axis=2)  # a[:, :, k]
+            piv = jnp.sum(jnp.where(i_n == k, row, 0.0), axis=1, keepdims=True)
+            r_k = jnp.where(i_n == k, 1.0, row) / piv
+            f_k = jnp.where(i_n == k, 0.0, col)
+            a = jnp.where(ck, 0.0, a) - f_k[:, :, None] * r_k[:, None, :]
+            return jnp.where(rk, r_k[:, None, :], a)
+
+        return M, jax.lax.fori_loop(0, n, sweep, M)
+
+    def block(c):
+        k, x, z, y, rho, M, Minv, done, iters, pri, dua = c
+        act = done == 0
+
+        def one_iter(_, xzy):
+            x, z, y = xzy
+            rhs = sigma * x - q + tmv(A, rho * z - y)
+            xt = mv(Minv, rhs)
+            if refine:
+                xt = xt + mv(Minv, rhs - mv(M, xt))
+            zt = mv(A, xt)
+            x_new = alpha * xt + (1.0 - alpha) * x
+            z_relax = alpha * zt + (1.0 - alpha) * z
+            z_unc = z_relax + y / rho
+            z_new = jnp.minimum(jnp.maximum(z_unc, lo), hi)
+            clipped = (z_unc < lo) | (z_unc > hi)
+            y_new = jnp.where(clipped, y + rho * (z_relax - z_new), 0.0)
+            return (
+                jnp.where(act, x_new, x), jnp.where(act, z_new, z),
+                jnp.where(act, y_new, y),
             )
 
-        # ---- Cholesky via right-looking full-matrix rank-1 updates ------
-        # The symmetric full update zeroes eliminated columns, so after
-        # pivot k the saved row satisfies L_s[k, j] = L[j, k] for j >= k
-        # (~0 below): L_s is the upper factor U = L' stored row-wise.
-        for k in range(n):
-            row = M_s[k, :, :]  # (n, TB)
-            dkk = row[k : k + 1, :]  # (1, TB)
-            inv = jax.lax.rsqrt(jnp.maximum(dkk, 1e-30))
-            lrow = row * inv  # (n, TB); lrow[k] = sqrt(dkk)
-            L_s[k, :, :] = lrow
-            M_s[:, :, :] = M_s[:] - lrow[None, :, :] * lrow[:, None, :]
-
-        # ---- Minv = M^-1: solve U'U X = I, n RHS at once ----------------
-        # forward (U'Y = I): Y[k] = (I[k] - sum_{j<k} U[j,k] Y[j]) / U[k,k]
-        for k in range(n):
-            if k:
-                acc = (
-                    L_s[:k, k : k + 1, :] * Minv_s[:k, :, :]
-                ).sum(axis=0)  # (n, TB): sum_j U[j,k] * Y[j]
-            else:
-                acc = jnp.zeros((n, TILE_B), f1)
-            rhs_row = eye_cols[k].astype(f1)  # (n, 1) broadcasts over lanes
-            Minv_s[k, :, :] = (rhs_row - acc) / L_s[k, k : k + 1, :]
-        # backward (U X = Y): X[k] = (Y[k] - sum_{j>k} U[k,j] X[j]) / U[k,k]
-        for k in range(n - 1, -1, -1):
-            if k < n - 1:
-                Urow = L_s[k, k + 1 :, :]  # (n-k-1, TB): U[k, j], j > k
-                acc = (Urow[:, None, :] * Minv_s[k + 1 :, :, :]).sum(axis=0)
-            else:
-                acc = jnp.zeros((n, TILE_B), f1)
-            Minv_s[k, :, :] = (Minv_s[k, :, :] - acc) / L_s[k, k : k + 1, :]
-
-        # ---- rebuild M for the refinement passes (factored in place) ----
-        for i in range(n):
-            col_i = (Arho * A_ref[:, i : i + 1, :]).sum(axis=0)
-            M_s[i, :, :] = (
-                P_ref[i, :, :] + sigma * eye_cols[i].astype(f1) + col_i
-            )
-
-    rho_s[:, :] = rho_ref[:]
-    factorize()
-
-    # ---- ADMM loop -------------------------------------------------------
-    x_s[:, :] = x0_ref[:]
-    y_s[:, :] = y0_ref[:]
-    z_s[:, :] = (A_ref[:] * x0_ref[:][None, :, :]).sum(axis=1)
-    done_s[:, :] = jnp.zeros((1, TILE_B), f1)
-    meta_out[:, :] = jnp.zeros((4, TILE_B), f1)
-
-    n_blocks = max(1, (max_iter + check_every - 1) // check_every)
-
-    def one_iter(_, carry):
-        it_done = carry
-        x = x_s[:, :]
-        z = z_s[:, :]
-        y = y_s[:, :]
-        rho = rho_s[:, :]
-        rz_y = rho * z - y  # (m, TB)
-        rhs = (
-            sigma * x
-            - q_ref[:]
-            + (A_ref[:] * rz_y[:, None, :]).sum(axis=0)
-        )  # (n, TB)
-        xt = (Minv_s[:, :, :] * rhs[None, :, :]).sum(axis=1)  # (n, TB)
-        if refine:
-            resid = rhs - (M_s[:, :, :] * xt[None, :, :]).sum(axis=1)
-            xt = xt + (Minv_s[:, :, :] * resid[None, :, :]).sum(axis=1)
-        zt = (A_ref[:] * xt[None, :, :]).sum(axis=1)  # (m, TB)
-        x_new = alpha * xt + (1.0 - alpha) * x
-        z_relax = alpha * zt + (1.0 - alpha) * z
-        z_unc = z_relax + y / rho
-        z_new = jnp.clip(z_unc, l_ref[:], u_ref[:])
-        clipped = (z_unc < l_ref[:]) | (z_unc > u_ref[:])
-        y_new = jnp.where(clipped, y + rho * (z_relax - z_new), 0.0)
-        act = done_s[0:1, :] < 0.5  # (1, TB)
-        x_s[:, :] = jnp.where(act, x_new, x)
-        z_s[:, :] = jnp.where(act, z_new, z)
-        y_s[:, :] = jnp.where(act, y_new, y)
-        return it_done
-
-    def block(carry):
-        k, _ = carry
-        jax.lax.fori_loop(0, check_every, one_iter, 0)
+        x, z, y = jax.lax.fori_loop(0, check_every, one_iter, (x, z, y))
         # convergence check on UNSCALED residuals (OSQP semantics): the
         # iteration runs on the Ruiz-scaled problem, the stopping test
-        # multiplies back by D^-1 / E^-1 / c^-1 (identity when unscaled)
-        x = x_s[:, :]
-        z = z_s[:, :]
-        y = y_s[:, :]
-        dinv = dinv_ref[:]  # (n, TB)
-        einv = einv_ref[:]  # (m, TB)
-        cinv = cinv_ref[:]  # (1, TB)
-        Ax = einv * (A_ref[:] * x[None, :, :]).sum(axis=1)  # (m, TB)
-        Px = dinv * (
-            (P_ref[:, :, :] * x[None, :, :]).sum(axis=1)
-        )  # (n, TB)
-        Aty = dinv * (A_ref[:] * y[:, :, None].transpose(0, 2, 1)).sum(axis=0)
-        pri = jnp.max(jnp.abs(Ax - einv * z), axis=0, keepdims=True)
-        dua = cinv * jnp.max(
-            jnp.abs(Px + dinv * q_ref[:] + Aty), axis=0, keepdims=True
-        )
-        pri_rel = jnp.maximum(
-            jnp.max(jnp.abs(Ax), axis=0, keepdims=True),
-            jnp.max(jnp.abs(einv * z), axis=0, keepdims=True),
-        )
-        dua_rel = cinv * jnp.maximum(
-            jnp.maximum(
-                jnp.max(jnp.abs(Px), axis=0, keepdims=True),
-                jnp.max(jnp.abs(Aty), axis=0, keepdims=True),
-            ),
-            jnp.max(jnp.abs(dinv * q_ref[:]), axis=0, keepdims=True),
-        )
+        # multiplies back by D^-1 / E^-1 / c^-1
+        Ax = einv * mv(A, x)
+        Px = dinv * mv(P, x)
+        Aty = dinv * tmv(A, y)
+        ez = einv * z
+        dq = dinv * q
+        pri = amax(Ax - ez)
+        dua = cinv * amax(Px + dq + Aty)
+        pri_rel = jnp.maximum(amax(Ax), amax(ez))
+        dua_rel = cinv * jnp.maximum(jnp.maximum(amax(Px), amax(Aty)), amax(dq))
         conv = (pri <= eps_abs + eps_rel * pri_rel) & (
             dua <= eps_abs + eps_rel * dua_rel
         )
-        newly = (done_s[0:1, :] < 0.5) & conv
-
-        # -- adaptive rho (OSQP 5.2): scale the whole per-row rho vector by
-        # sqrt(scaled-primal / scaled-dual residual) per lane; refactor only
-        # when some active, unconverged lane moves by more than 5x.  The
-        # multiplicative update preserves the equality-boost / loose-floor
-        # structure the caller baked into rho_vec.
+        iters = iters + jnp.where(act, check_every, 0)
+        # adaptive rho (OSQP 5.2): scale the per-row rho vector by
+        # sqrt(scaled-primal / scaled-dual residual) per instance; refactor
+        # only when some active, unconverged instance moves by more than 5x
         tiny = 1e-30
         ratio = jnp.sqrt(
             (pri / jnp.maximum(pri_rel, tiny))
             / jnp.maximum(dua / jnp.maximum(dua_rel, tiny), tiny)
         )
-        ratio = jnp.clip(ratio, 1e-4, 1e4)
-        adapt = (
-            (done_s[0:1, :] < 0.5)
-            & ~conv
-            & ((ratio > 5.0) | (ratio < 0.2))
+        ratio = jnp.minimum(jnp.maximum(ratio, 1e-4), 1e4)
+        adapt = act & ~conv & ((ratio > 5.0) | (ratio < 0.2))
+
+        def refactor(ops):
+            rho, _, _ = ops
+            rho = jnp.where(adapt, rho * ratio, rho)
+            rho = jnp.minimum(jnp.maximum(rho, 1e-6), 1e6)
+            M, Minv = factorize(rho)
+            return rho, M, Minv
+
+        rho, M, Minv = jax.lax.cond(
+            jnp.max(adapt.astype(jnp.int32)) > 0, refactor, lambda ops: ops,
+            (rho, M, Minv),
         )
-        scale_l = jnp.where(adapt, ratio, 1.0)  # (1, TB)
+        done = jnp.where(conv, 1, done)
+        return k + 1, x, z, y, rho, M, Minv, done, iters, pri, dua
 
-        def do_refactor():
-            rho_s[:, :] = jnp.clip(rho_s[:, :] * scale_l, 1e-6, 1e6)
-            factorize()
+    def cond(c):
+        k, done = c[0], c[7]
+        return (k < n_blocks) & (jnp.min(done) == 0)
 
-        jax.lax.cond(jnp.any(adapt), do_refactor, lambda: None)
-        done_s[:, :] = jnp.where(conv, 1.0, done_s[:, :])
-        # iters counter (meta row 0) advances only for active instances
-        meta_out[0:1, :] = jnp.where(
-            done_s[0:1, :] > 0.5,
-            jnp.where(
-                newly, meta_out[0:1, :] + float(check_every), meta_out[0:1, :]
-            ),
-            meta_out[0:1, :] + float(check_every),
-        )
-        meta_out[2:3, :] = pri
-        meta_out[3:4, :] = dua
-        all_done = jnp.all(done_s[0:1, :] > 0.5)
-        return k + 1, all_done
-
-    def cond(carry):
-        k, all_done = carry
-        return jnp.logical_and(k < n_blocks, jnp.logical_not(all_done))
-
-    jax.lax.while_loop(
-        cond, block, (jnp.asarray(0, jnp.int32), jnp.asarray(False))
+    rho = rho_ref[...]
+    M, Minv = factorize(rho)
+    x = x0_ref[...]
+    y = y0_ref[...]
+    zero = jnp.zeros((T, 1), f1)
+    init = (
+        jnp.int32(0), x, mv(A, x), y, rho, M, Minv,
+        jnp.zeros((T, 1), jnp.int32), jnp.zeros((T, 1), jnp.int32), zero, zero,
     )
-
-    meta_out[1:2, :] = done_s[0:1, :]
-    x_out[:, :] = x_s[:, :]
-    y_out[:, :] = y_s[:, :]
-    z_out[:, :] = z_s[:, :]
+    _, x, z, y, _, _, _, done, iters, pri, dua = jax.lax.while_loop(
+        cond, block, init
+    )
+    x_out[...] = x
+    y_out[...] = y
+    z_out[...] = z
+    i4 = jax.lax.broadcasted_iota(jnp.int32, (1, 4), 1)
+    meta_out[...] = jnp.where(
+        i4 == 0, iters.astype(f1),
+        jnp.where(i4 == 1, done.astype(f1), jnp.where(i4 == 2, pri, dua)),
+    )
 
 
 @functools.partial(
     jax.jit,
     static_argnames=(
         "sigma", "alpha", "eps_abs", "eps_rel", "max_iter", "check_every",
-        "refine", "ruiz_iters", "interpret",
+        "refine", "ruiz_iters", "tile", "num_warps", "interpret",
     ),
 )
 def solve_batched(
     P, A, q, l, u, rho_vec, x0, y0,
     *, sigma=1e-5, alpha=1.6, eps_abs=5e-6, eps_rel=5e-6,
     max_iter=500, check_every=25, refine=True, ruiz_iters=10,
-    interpret=False,
+    tile=TILE_B, num_warps=NUM_WARPS, interpret=False,
 ):
-    """Solve a batch of small dense QPs, one fused kernel per batch tile.
+    """Solve a batch of small dense QPs in one fused kernel.
 
     Args (batch axis leading): P (B,n,n), A (B,m,n), q (B,n), l/u/rho_vec
     (B,m), warm starts x0 (B,n), y0 (B,m) — all UNSCALED.  Ruiz
-    equilibration runs here on the host/XLA side (once per problem, batched
-    ops), the kernel iterates on the scaled problem and applies the stopping
-    test to unscaled residuals, and the returned (x, y, z, iters, done, pri,
-    dua) are unscaled with the batch axis leading.
+    equilibration runs here in XLA (once per problem, batched ops), the
+    kernel iterates on the scaled problem and applies the stopping test to
+    unscaled residuals, and the returned (x, y, z, iters, done, pri, dua)
+    are unscaled with the batch axis leading.
 
     ``rho_vec`` carries the per-row penalty (equality rows boosted, loose
     rows at the minimum — ops/admm.py's ``_rho_vec_of`` semantics, computed
     by the caller from masks, which are scale-invariant).
+
+    The kernel compiles for the GPU through Triton; ``interpret=True`` runs
+    it in the Pallas interpreter instead (tests on the CPU).
     """
     from .admm import _ruiz_equilibration
 
     B, n = q.shape
     m = A.shape[1]
     dtype = jnp.float32
-    Bp = ((B + TILE_B - 1) // TILE_B) * TILE_B
-    pad = Bp - B
-
     P = P.astype(dtype)
     A = A.astype(dtype)
     q = q.astype(dtype)
@@ -309,8 +250,8 @@ def solve_batched(
     P = cb[:, :, None] * P * d[:, None, :] * d[:, :, None]
     A = A * e[:, :, None] * d[:, None, :]
     q = cb * q * d
-    l = e * l.astype(dtype)
-    u = e * u.astype(dtype)
+    l = e * jnp.maximum(l.astype(dtype), -INF_BOUND)
+    u = e * jnp.minimum(u.astype(dtype), INF_BOUND)
     # warm starts into scaled space: xbar = x/d, ybar = c*y/e
     x0 = x0.astype(dtype) / d
     y0 = cb * y0.astype(dtype) / e
@@ -318,83 +259,73 @@ def solve_batched(
     einv = 1.0 / e
     cinv = (1.0 / c)[:, None]
 
-    def prep(arr, move):
-        arr = arr.astype(dtype)
-        if pad:
-            # edge-replicate the last real instance: pad lanes then solve a
-            # well-posed problem and converge with the rest of the tile
-            # (all-zero or all-one padding would be singular and pin every
-            # tile at max_iter)
-            arr = jnp.concatenate(
-                [arr, jnp.broadcast_to(arr[-1:], (pad,) + arr.shape[1:])],
-                axis=0,
-            )
-        return jnp.moveaxis(arr, 0, -1) if move else arr
-
-    P_t = prep(P, True)  # (n, n, Bp)
-    A_t = prep(A, True)  # (m, n, Bp)
-    q_t = prep(q, True)  # (n, Bp)
-    l_t = prep(jnp.maximum(l, -INF_BOUND), True)
-    u_t = prep(jnp.minimum(u, INF_BOUND), True)
-    r_t = prep(rho_vec, True)
-    x_t = prep(x0, True)
-    y_t = prep(y0, True)
-    di_t = prep(dinv, True)  # (n, Bp)
-    ei_t = prep(einv, True)  # (m, Bp)
-    ci_t = prep(cinv, True)  # (1, Bp)
-
-    grid = Bp // TILE_B
-    kern = functools.partial(
-        _kernel, n=n, m=m, sigma=float(sigma), alpha=float(alpha),
-        eps_abs=float(eps_abs), eps_rel=float(eps_rel),
-        max_iter=int(max_iter), check_every=int(check_every),
-        refine=bool(refine),
+    # pad the widths to powers of two: padded variables get a unit diagonal
+    # and no constraint coupling (they stay exactly zero), padded rows are
+    # empty equalities 0 <= 0 <= 0 with zero duals
+    n_p, m_p = _pow2(n), _pow2(m)
+    dn, dm = n_p - n, m_p - m
+    P = jnp.pad(P, ((0, 0), (0, dn), (0, dn)))
+    P = P + jnp.diag(jnp.arange(n_p) >= n).astype(dtype)
+    A = jnp.pad(A, ((0, 0), (0, dm), (0, dn)))
+    q, x0, dinv_p = (
+        jnp.pad(v, ((0, 0), (0, dn)), constant_values=cv)
+        for v, cv in ((q, 0.0), (x0, 0.0), (dinv, 1.0))
     )
+    l, u, y0 = (jnp.pad(v, ((0, 0), (0, dm))) for v in (l, u, y0))
+    rho_p = jnp.pad(rho_vec.astype(dtype), ((0, 0), (0, dm)), constant_values=1.0)
+    einv_p = jnp.pad(einv, ((0, 0), (0, dm)), constant_values=1.0)
+
+    # pad the batch to whole tiles by edge-replicating the last instance, so
+    # pad lanes solve a well-posed problem and converge with their tile
+    Bp = -(-B // tile) * tile
+    args = [P, A, q, l, u, rho_p, x0, y0, dinv_p, einv_p, cinv]
+    if Bp > B:
+        args = [
+            jnp.concatenate(
+                [a, jnp.broadcast_to(a[-1:], (Bp - B,) + a.shape[1:])]
+            )
+            for a in args
+        ]
 
     def spec(*shape):
-        ndim = len(shape)
         return pl.BlockSpec(
-            shape + (TILE_B,),
-            (lambda i, _nd=ndim: (0,) * _nd + (i,)),
-            memory_space=pltpu.VMEM,
+            (tile,) + shape, lambda i, _k=len(shape): (i,) + (0,) * _k
         )
 
-    out = pl.pallas_call(
+    kern = functools.partial(
+        _kernel, sigma=float(sigma), alpha=float(alpha),
+        eps_abs=float(eps_abs), eps_rel=float(eps_rel),
+        n_blocks=max(1, -(-int(max_iter) // int(check_every))),
+        check_every=int(check_every), refine=bool(refine),
+    )
+    x_o, y_o, z_o, meta = pl.pallas_call(
         kern,
-        grid=(grid,),
+        grid=(Bp // tile,),
         in_specs=[
-            spec(n, n), spec(m, n), spec(n), spec(m), spec(m), spec(m),
-            spec(n), spec(m), spec(n), spec(m), spec(1),
+            spec(n_p, n_p), spec(m_p, n_p), spec(n_p), spec(m_p), spec(m_p),
+            spec(m_p), spec(n_p), spec(m_p), spec(n_p), spec(m_p), spec(1),
         ],
-        out_specs=(spec(n), spec(m), spec(m), spec(4)),
+        out_specs=(spec(n_p), spec(m_p), spec(m_p), spec(4)),
         out_shape=(
-            jax.ShapeDtypeStruct((n, Bp), dtype),
-            jax.ShapeDtypeStruct((m, Bp), dtype),
-            jax.ShapeDtypeStruct((m, Bp), dtype),
-            jax.ShapeDtypeStruct((4, Bp), dtype),
+            jax.ShapeDtypeStruct((Bp, n_p), dtype),
+            jax.ShapeDtypeStruct((Bp, m_p), dtype),
+            jax.ShapeDtypeStruct((Bp, m_p), dtype),
+            jax.ShapeDtypeStruct((Bp, 4), dtype),
         ),
-        scratch_shapes=[
-            pltpu.VMEM((n, n, TILE_B), dtype),  # M
-            pltpu.VMEM((n, n, TILE_B), dtype),  # Minv
-            pltpu.VMEM((n, n, TILE_B), dtype),  # L
-            pltpu.VMEM((n, TILE_B), dtype),  # x
-            pltpu.VMEM((m, TILE_B), dtype),  # z
-            pltpu.VMEM((m, TILE_B), dtype),  # y
-            pltpu.VMEM((1, TILE_B), dtype),  # done
-            pltpu.VMEM((m, TILE_B), dtype),  # rho (adapted in-kernel)
-        ],
+        backend="triton",
+        compiler_params=plt.CompilerParams(num_warps=num_warps, num_stages=1),
         interpret=interpret,
-    )(P_t, A_t, q_t, l_t, u_t, r_t, x_t, y_t, di_t, ei_t, ci_t)
+        name="qp_inner_admm",
+    )(*args)
 
-    x_o, y_o, z_o, meta = (jnp.moveaxis(o, -1, 0)[:B] for o in out)
+    x_o, y_o, z_o, meta = x_o[:B, :n], y_o[:B, :m], z_o[:B, :m], meta[:B]
     # unscale: x = D xbar, z = E^-1 zbar, y = E ybar / c
     x_o = x_o * d
     z_o = z_o * einv
     y_o = y_o * e * cinv
     iters = meta[:, 0].astype(jnp.int32)
     done = meta[:, 1] > 0.5
-    pri, dua = meta[:, 2], meta[:, 3]
-    return x_o, y_o, z_o, iters, done, pri, dua
+    return x_o, y_o, z_o, iters, done, meta[:, 2], meta[:, 3]
 
 
 @functools.lru_cache(maxsize=None)

@@ -1,6 +1,6 @@
 """Batched SQP solver for the nonlinear MPC problem.
 
-The TPU-native replacement for NLopt's LD_SLSQP driving the reference's NLMPC
+The batched replacement for NLopt's LD_SLSQP driving the reference's NLMPC
 (reference: include/mpc/NLMPC/NLOptimizer.hpp:64, :519).  Same solver family —
 sequential quadratic programming with an l1-merit line search — re-built
 around what the hardware and autodiff make cheap:
@@ -8,8 +8,8 @@ around what the hardware and autodiff make cheap:
 * gradients and constraint Jacobians are exact autodiff (the reference uses
   finite differences, Constraints.hpp:844-905);
 * curvature is the exact Lagrangian Hessian convexified by eigenvalue
-  clipping by default (``hessian_reg="eigh"`` — fewest SQP iterations, and
-  batched small eigh measures ~0.08 ms/1024 instances on TPU); damped-BFGS
+  clipping (``hessian_reg="eigh"`` — fewest SQP iterations) or shifted by a
+  Gershgorin bound (``"gershgorin"``, the default); damped-BFGS
   (``"bfgs"``, SLSQP's own family) and factorization-free shifts
   (``"gershgorin"``/``"power"``) are selectable;
 * the inner QP reuses the batched ADMM kernel (`ops/admm.py`), sharing one QP
@@ -31,7 +31,7 @@ import jax
 import jax.numpy as jnp
 
 from ..types import LParameters, NLParameters
-from . import admm, batched_linalg, pdip, qp_inner_pallas, trajectory_kkt
+from . import admm, pdip, qp_inner_pallas, trajectory_kkt
 
 # -- nlopt result values (nlopt.hpp) ----------------------------------------
 NLOPT_FAILURE = -1
@@ -48,6 +48,9 @@ _INTERNAL_ACC = 1e-7  # optimality tolerance when no user tol is set
 _MAX_LS_FAILS = 4
 _MAX_STALL = 6
 _ARMIJO_C1 = 1e-4
+# second-order correction: a dense Cholesky solve of Je Je' up to this many
+# equality rows, matrix-free CG beyond (not measured on the H100)
+_SOC_DENSE_MAX_ROWS = 52
 
 
 class Carry(NamedTuple):
@@ -102,7 +105,9 @@ def _gershgorin_convexify(H, nz: int, dtype):
 def _qp_params(f32: bool = False) -> LParameters:
     """Inner-QP settings: tight tolerances, polish for exact active sets.
     float32 runs get reachable tolerances (1e-9 is below the f32 noise
-    floor and would force every subproblem to max-iter)."""
+    floor and would force every subproblem to max-iter).  The polish is the
+    per-instance dense one: every subproblem has its own P and A, so the
+    shared-factorization polish would share nothing."""
     if f32:
         return LParameters(
             maximum_iteration=500,
@@ -111,17 +116,16 @@ def _qp_params(f32: bool = False) -> LParameters:
             eps_rel=5e-6,
             eps_prim_inf=1e-5,
             eps_dual_inf=1e-5,
-            # shared polish: one Woodbury correction (k <= 2*cap Pallas
-            # Cholesky + GEMMs) snaps the returned direction onto the
-            # active set — without it the 5e-6-tolerance f32 directions
-            # leave the outer iterate ~1e-5 infeasible at termination on
+            # the polish snaps the returned direction onto the active set
+            # — without it the 5e-6-tolerance f32 directions leave the
+            # outer iterate ~1e-5 infeasible at termination on
             # long-horizon problems (the oversize-fused fallback cases)
             polish=True,
+            polish_mode="dense",
             adaptive_rho=True,
             check_termination=25,
             scaling_iters=10,
             rho=0.1,
-            use_pallas=False,
         )
     return LParameters(
         maximum_iteration=1000,
@@ -131,12 +135,67 @@ def _qp_params(f32: bool = False) -> LParameters:
         eps_prim_inf=1e-6,
         eps_dual_inf=1e-6,
         polish=True,
+        polish_mode="dense",
         adaptive_rho=True,
         check_termination=25,
         scaling_iters=10,  # subproblem Hessians can be badly scaled
         rho=0.1,
-        use_pallas=False,  # inner QPs are vmapped and tiny
     )
+
+
+_BANDED_CURVATURE = ("gauss_newton", "gershgorin", "power")
+
+
+def inner_engine(
+    params: NLParameters, dtype, nz: int, me: int, mi: int,
+    traj_plan: Optional[trajectory_kkt.TrajPlan] = None,
+    backend: Optional[str] = None,
+) -> str:
+    """The inner-QP engine a solve runs: "fused", "riccati", "pdip" or
+    "admm".  The one place that decides it (ops/sqp.py and rollout.py both
+    ask here).
+
+    * "fused" (the default request) runs the fused kernel
+      (ops/qp_inner_pallas.py) where it exists: float32 on a GPU, at widths
+      the kernel takes.  Otherwise it becomes the banded interior point
+      ("riccati") when the controller verified the banded structure, the
+      inner ADMM for float32 problems too wide for the kernel, and the dense
+      interior point ("pdip") for float64 or where the kernel does not
+      compile (the CPU).
+    * "riccati" needs a verified plan whose shapes match and a curvature
+      mode that keeps the band (eigh fills in V W V'; bfgs is dense by
+      construction); without one it degrades to "pdip".
+    * "pdip" and "admm" are taken as asked.
+    """
+    from ..utils.logger import Logger
+
+    backend = backend or jax.default_backend()
+    f32 = dtype == jnp.float32
+    m_qp = me + mi + nz
+    request = params.inner_qp
+    plan_ok = (
+        traj_plan is not None
+        and params.hessian_reg in _BANDED_CURVATURE
+        and me == traj_plan.ph * traj_plan.nx
+        and mi == traj_plan.mi
+        and nz == traj_plan.nz
+    )
+    if request == "fused":
+        fits = qp_inner_pallas.supported(nz, m_qp)
+        if f32 and fits and backend == "gpu":
+            return "fused"
+        engine = (
+            "riccati" if plan_ok else "admm" if f32 and not fits else "pdip"
+        )
+        Logger.instance().info(
+            f'inner_qp="fused" runs the "{engine}" engine here (float32 '
+            f"{f32}, widths ({nz}, {m_qp}) fit the kernel {fits}, "
+            f"backend {backend})"
+        )
+        return engine
+    if request == "riccati":
+        return "riccati" if plan_ok else "pdip"
+    return request
 
 
 def sqp_solve(
@@ -173,8 +232,9 @@ def sqp_solve(
     later resume instead of an :class:`SQPSolution`.  Chunking the loop
     this way partitions the exact same per-instance iteration sequence.
 
-    Runs at ``highest`` matmul precision — TPU's default bf16 matmul passes
-    cannot drive an optimizer to 1e-7 stationarity.
+    Runs at ``highest`` matmul precision (IEEE float32 on a GPU, no TF32):
+    reduced-precision matmul passes cannot drive an optimizer to 1e-7
+    stationarity.
     """
     with jax.default_matmul_precision("highest"):
         return _sqp_solve_hp(
@@ -212,71 +272,21 @@ def _sqp_solve_hp(
         hess_L = jax.hessian(lagrangian)
 
     f32 = dtype == jnp.float32
-    # the fused engine is a single-precision TPU Pallas kernel by design
-    # (interpreted on CPU test meshes); an f64 solve — or a non-TPU
-    # accelerator backend — asking for it gets the accurate interior-point
-    # engine instead (an f32 inner direction cannot drive the outer loop
-    # to 1e-7 stationarity, and the kernel does not lower on GPU).
-    # Size gate: the kernel's (nz, nz, 128) factorization scratch is
-    # quadratic in the decision size — past the VMEM budget (nz ~ 150+) the
-    # kernel cannot lower on TPU, so large problems degrade to the
-    # interior-point engine automatically instead of failing (the gate is
-    # applied on every backend so engine selection is deterministic).
-    backend_ok = jax.default_backend() in ("tpu", "cpu")
-    fused_req = params.inner_qp == "fused"
-    size_ok = qp_inner_pallas.supported(nz, m_qp)
-    use_fused = fused_req and f32 and backend_ok and size_ok
-    # trajectory-structured engine (ops/trajectory_kkt.py): IPM whose
-    # Newton systems solve by a bordered block-tridiagonal LDL^T over the
-    # horizon — O(ph*(2nx+nu)^3) per factorization instead of the dense
-    # O(nz^3).  Available when the controller verified the NLP's banded
-    # structure (traj_plan), the curvature mode preserves it (eigh fills
-    # in V W V'; bfgs is dense by construction), and the problem shapes
-    # match the plan.  Selected explicitly (inner_qp="riccati") or as the
-    # fallback for an oversize "fused" request — measured on TPU v5e at
-    # nz=301 (networked oscillators): the inner-ADMM fallback spent 818 ms
-    # per inner solve (~500 lockstep iterations of dense matmuls,
-    # misc/profile_osc.py); the banded IPM does ~20 iterations of
-    # stage-recursion sweeps.
-    plan_ok = (
-        traj_plan is not None
-        and params.hessian_reg in ("gauss_newton", "gershgorin", "power")
-        and me == traj_plan.ph * traj_plan.nx
-        and mi == traj_plan.mi
-        and nz == traj_plan.nz
-    )
-    use_traj = plan_ok and (
-        params.inner_qp == "riccati" or (fused_req and not use_fused)
-    )
-    # fallback routing for an unusable fused request:
-    # - f64 / non-TPU accelerator: accuracy-driven -> interior-point (an
-    #   f32 inner direction cannot drive the outer loop to 1e-7
-    #   stationarity);
-    # - f32 but past the VMEM size gate, no banded plan: inner ADMM (one
-    #   KKT inverse per SQP iteration instead of one per IPM iteration;
-    #   measured on TPU v5e at nz=301: 116 vs 83 solves/s warm re-solve
-    #   at equal success).
-    use_pdip = not use_traj and (
-        params.inner_qp == "pdip"
-        or params.inner_qp == "riccati"  # requested but no verified plan
-        or (fused_req and not use_fused and not (f32 and backend_ok))
-    )
+    engine = inner_engine(params, dtype, nz, me, mi, traj_plan)
+    use_traj = engine == "riccati"
+    use_pdip = engine == "pdip"
+    use_fused = engine == "fused"
     qp_par = _qp_params(f32)
     if use_fused:
-        # one fused Pallas kernel per inner-QP batch (TPU); the interpreter
-        # carries the same kernel on CPU test meshes.  f32 settings: the
-        # fused engine is a single-precision kernel by design — f64 solves
-        # keep the XLA engines.
+        # the whole inner-QP batch in one fused kernel per SQP iteration
         fused_solve = qp_inner_pallas.make_inner_qp_solver(
             sigma=1e-5,
             alpha=qp_par.alpha,
             eps_abs=max(qp_par.eps_abs, 5e-6),
             eps_rel=max(qp_par.eps_rel, 5e-6),
-            # warm-started SQP subproblems converge in a few check blocks;
-            # a tighter cap bounds the lockstep tail of a 128-lane tile
+            # warm-started SQP subproblems converge in a few check blocks
             max_iter=min(qp_par.maximum_iteration, 300),
             check_every=qp_par.check_termination,
-            interpret=jax.default_backend() == "cpu",
         )
     acc = 1e-5 if f32 else _INTERNAL_ACC
     eq_mask = jnp.arange(m_qp) < me
@@ -428,8 +438,8 @@ def _sqp_solve_hp(
                 B = _gershgorin_convexify(H, nz, dtype)
             elif params.hessian_reg == "power":
                 # shift by a *tight* estimate of -lambda_min obtained with
-                # two short power iterations (pure batched matvecs — ideal
-                # for the MXU, no factorization, no eigh).  Near a solution H
+                # two short power iterations (pure batched matvecs, no
+                # factorization, no eigh).  Near a solution H
                 # is PSD, the shift collapses to the floor and the steps
                 # match the exact-Newton ones.
                 eye = jnp.eye(nz, dtype=dtype)
@@ -478,21 +488,17 @@ def _sqp_solve_hp(
             rho_q = (1e4 if f32 else 1e8) * dual_scale * (
                 1.0 + jnp.sum(jnp.abs(ce)) + jnp.sum(ci_pos)
             )
-            # IPM cap policy.  Default: FLAT 45 (the round-4 measured
-            # optimum on the nz=301 oscillator bench: flat 30 -> 461
-            # solves/s at 0.991 success — truncated directions fail the
-            # line search; flat 45 -> 329 at 0.999).  Per-lane escalation
-            # (inner_iters < inner_iters_recovery: a lane whose previous
-            # direction failed the line search gets the deep cap, folded
-            # into the done mask so the compiled loop keeps a static trip
-            # bound) was built and MEASURED SLOWER in round 5: under
-            # vmap the lockstep batch pays the max lane's cap every step,
-            # and failing lanes are per-step common, so esc30/60 ran at
-            # 214 solves/s and esc30/45 at 301 vs flat 45's 329 at equal
-            # success (misc/ab_osc_escalation.py) — the knobs remain for
-            # problem families with genuinely rare deep lanes, and the
-            # two-phase path is the rollout-level compacted rescue
-            # (NLParameters.rescue_iters) instead.
+            # IPM cap policy.  Default: a flat 45 (on the nz=301
+            # oscillator bench a flat 30 lost success: truncated directions
+            # fail the line search).  Per-lane escalation (inner_iters <
+            # inner_iters_recovery: a lane whose previous direction failed
+            # the line search gets the deep cap, folded into the done mask
+            # so the compiled loop keeps a static trip bound) measured
+            # slower: under vmap the lockstep batch pays the max lane's cap
+            # every step, and failing lanes are per-step common.  The knobs
+            # remain for problem families with genuinely rare deep lanes;
+            # the two-phase path is the rollout-level compacted rescue
+            # (NLParameters.rescue_iters).  Not measured on the H100.
             it_base = params.inner_iters or 45
             # clamp: a recovery cap below the base would DE-escalate the
             # struggling lanes (the measured flat-30 failure mode)
@@ -669,21 +675,18 @@ def _sqp_solve_hp(
         # the correction (constraint evaluation + batched solve) on EVERY
         # trial — measured 4x slower than the unconditional hoisted form.
         ce_full = ceq_fn(s.z + d)
-        if batched_linalg.kernel_supported(me):
-            # SPD solve routed through the fused Pallas batched-Cholesky
-            # under vmap (ops/batched_linalg.spd_solve): XLA's batched LU for
-            # this 20x20 system measured 5.7 ms per SQP iteration — 36% of
-            # the whole NLMPC solve — at batch 1024
+        if me <= _SOC_DENSE_MAX_ROWS:
             JJt = Je @ Je.T + 1e-10 * jnp.eye(me, dtype=dtype)
-            soc_corr = batched_linalg.spd_solve(JJt, ce_full)
+            soc_corr = jax.scipy.linalg.cho_solve(
+                jax.scipy.linalg.cho_factor(JJt, lower=True), ce_full
+            )
         else:
-            # me past the Cholesky kernel's VMEM budget (e.g. networked
-            # oscillators: me = ph*nx = 240): matrix-free CG on Je Je' —
-            # two (me, nz) matvecs per iteration, pure MXU work, never forms
-            # or factors the dense me^2 system.  The SOC is a trial
-            # candidate, not the step itself, so a fixed-iteration
-            # approximate solve is sufficient; a poor candidate just loses
-            # the line search.
+            # many equality rows (e.g. networked oscillators: me = ph*nx =
+            # 240): matrix-free CG on Je Je' — two (me, nz) matvecs per
+            # iteration, never forms or factors the dense me^2 system.  The
+            # SOC is a trial candidate, not the step itself, so a
+            # fixed-iteration approximate solve is sufficient; a poor
+            # candidate just loses the line search.
             def _cg_mv(v):
                 return Je @ (v @ Je) + 1e-10 * v
 
@@ -718,8 +721,7 @@ def _sqp_solve_hp(
         # convergence the unit step passes immediately, so a solve costs ~1
         # merit evaluation per iteration instead of the previous fixed 13.
         # (A candidate axis via nested vmap is avoided deliberately: under a
-        # fleet vmap it would triple-nest the user model, which the
-        # experimental TPU plugin miscompiles.)
+        # fleet vmap it would triple-nest the user model.)
         class LS(NamedTuple):
             t: jax.Array
             done: jax.Array

@@ -1,4 +1,4 @@
-"""Mesh / fleet parallelism layer (the TPU-native scaling axis, SURVEY §2.3).
+"""Mesh / fleet parallelism layer (the scenario-parallel scaling axis, SURVEY §2.3).
 
 Public surface re-exported here so users can write::
 

@@ -1,6 +1,6 @@
 """Scenario-parallel fleet solvers.
 
-The headline TPU capability (BASELINE.json): one controller configuration,
+The headline capability (BASELINE.json): one controller configuration,
 thousands of problem instances (initial states, references, disturbances)
 solved in lockstep, sharded over a device mesh.  Each device solves its slice
 of the fleet entirely on-chip — the only collectives are ``psum``/``pmax``
@@ -8,9 +8,9 @@ over the ``data`` axis to aggregate fleet-level statistics (the distributed
 analog of the reference's per-controller ``SolutionStats``,
 include/mpc/Profiler.hpp:88-120).
 
-Multi-host: the same ``shard_map`` program runs unchanged on a pod slice
-after ``mesh.init_distributed()``; batch shards ride ICI, stats reductions
-cross DCN only at the end of each step.
+Multi-host: the same ``shard_map`` program runs unchanged across hosts
+after ``mesh.init_distributed()``; batch shards stay on their devices and
+the stats reductions cross the network only at the end of each step.
 """
 
 from __future__ import annotations
@@ -77,7 +77,7 @@ def _local_stats(status, iters, axis: str) -> FleetStats:
         mean_iterations=jnp.sum(iters.astype(jnp.float32)),
         max_iterations=jnp.max(iters),
     )
-    # fleet-level reductions over ICI
+    # fleet-level reductions over the data axis
     summed = jax.tree.map(
         lambda a: jax.lax.psum(a, axis),
         dataclasses.replace(stats, max_iterations=jnp.asarray(0, jnp.int32)),

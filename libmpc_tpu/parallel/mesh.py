@@ -4,7 +4,7 @@ The reference is single-process/single-thread (SURVEY §2.3); scaling there
 means "run more controller objects".  Here the scaling axis is the *batch of
 problem instances*: a fleet of MPC problems is sharded over a
 ``jax.sharding.Mesh`` and solved in lockstep, with ``psum``/``pmax``
-collectives over ICI for fleet-level reductions.  This module holds the
+collectives for fleet-level reductions.  This module holds the
 mesh/axis conventions shared by the fleet solvers.
 
 Axes:
@@ -17,7 +17,7 @@ Axes:
 
 Multi-host: call :func:`init_distributed` once per process before building
 meshes; ``jax.devices()`` then spans all hosts and the same code scales from
-one chip to a pod slice.
+one device to many hosts.
 """
 
 from __future__ import annotations
@@ -37,8 +37,9 @@ def init_distributed(coordinator_address: Optional[str] = None,
                      process_id: Optional[int] = None) -> None:
     """Initialize multi-host JAX (no-op on a single process).
 
-    Wraps ``jax.distributed.initialize``; in managed environments (TPU pods)
-    all arguments are auto-detected.
+    Wraps ``jax.distributed.initialize``; managed cluster environments
+    detect the arguments, elsewhere pass the coordinator's address, the
+    process count and this process's id.
     """
     try:
         jax.distributed.initialize(coordinator_address, num_processes, process_id)
@@ -51,9 +52,9 @@ def make_mesh(data: Optional[int] = None, model: int = 1,
               devices: Optional[Sequence] = None) -> Mesh:
     """Build a ``(data, model)`` mesh over the available devices.
 
-    ``data`` defaults to ``len(devices) // model``.  The data axis is laid
-    out last-varying so neighboring devices (sharing ICI links) serve the
-    same model group.
+    ``data`` defaults to ``len(devices) // model``.  Devices fill the grid
+    in order; the cards of one host reach each other at the same rate
+    (NVLink, all to all), so the mesh follows the algorithm only.
     """
     devices = list(devices if devices is not None else jax.devices())
     if data is None:

@@ -9,7 +9,7 @@ full-featured kernel as the single-chip path (``ops/admm.py`` with
 ``axis_rows`` set): Ruiz equilibration, per-row rho, adaptive rho,
 primal/dual infeasibility certificates and active-set polish all operate on
 the sharded rows — psum for cross-space contractions, pmax for row-space
-norms, all riding ICI.
+norms.
 
 Composable with the data axis: inputs may carry a batch dimension sharded
 over ``data`` while rows shard over ``model`` — one ``shard_map`` over the

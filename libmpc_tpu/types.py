@@ -1,10 +1,10 @@
-"""Core public types of the TPU-native MPC framework.
+"""Core public types of the batched MPC framework.
 
 Parity surface mirrors the reference library's ``Types.hpp``
 (reference: include/mpc/Types.hpp:57-206): ``HorizonSlice``, ``ResultStatus``,
 ``Parameters``/``LParameters``/``NLParameters``, ``Result`` and ``OptSequence``.
 
-Design differences (TPU-first):
+Design differences (batch-first):
 
 * ``Result`` / ``OptSequence`` are immutable pytrees (registered dataclasses)
   whose leaves are ``jax.Array``s so a whole *batch* of results can flow
@@ -27,7 +27,7 @@ inf = float("inf")
 
 
 def default_dtype():
-    """float64 when jax_enable_x64 is on (parity mode), else float32 (TPU mode)."""
+    """float64 when jax_enable_x64 is on (parity mode), else float32 (accelerator mode)."""
     import jax.numpy as jnp
 
     return jnp.float64 if jax.config.read("jax_enable_x64") else jnp.float32
@@ -95,7 +95,7 @@ class Parameters:
 class LParameters(Parameters):
     """OSQP-style ADMM parameters (reference: include/mpc/Types.hpp:146-161).
 
-    Extra TPU-specific knobs (absent in the reference, defaults keep parity):
+    Extra knobs (absent in the reference, defaults keep parity):
 
     * ``check_termination``: residuals are evaluated every N iterations so the
       hot loop stays pure matmuls (OSQP uses 25 internally as well).
@@ -112,7 +112,7 @@ class LParameters(Parameters):
     verbose: bool = False
     adaptive_rho: bool = True
     polish: bool = True
-    # TPU-native extensions
+    # extensions beyond the reference
     check_termination: int = 25
     polish_refine_iter: int = 3
     # polish implementation: "shared" solves each instance's active-set
@@ -125,11 +125,10 @@ class LParameters(Parameters):
     polish_mode: str = "shared"
     # Woodbury correction width of the shared polish: instances with more
     # active inequality rows than this fall back to the ADMM iterate for
-    # the overflow rows.  24 measured accuracy-IDENTICAL to 40 on the full
+    # the overflow rows.  24 measured accuracy-identical to 40 on the full
     # randomized quadrotor bench batch (misc/batch_accuracy.py: cold/warm
-    # max errors equal to 3 digits — active sets fit within 24) while the
-    # hardware sweep put cap 24 at +24% throughput over cap 40 (246k vs
-    # 187k solves/s, misc/results/SWEEP_TPU_r2_batch2.txt).  Raise it for
+    # max errors equal to 3 digits — active sets fit within 24) at less
+    # work per polish; speed not measured on the H100.  Raise it for
     # problem families with wider active sets.
     polish_active_cap: int = 24
     # float32 shared-polish refinement budget: number of incremental
@@ -150,43 +149,39 @@ class LParameters(Parameters):
     # a small batch and iterate only that (identical per-row math and
     # check cadence; single-chip batched path, batch >= 256)
     compact_stragglers: bool = True
-    # straggler stall detection (TPU-native extension): an instance whose
+    # straggler stall detection (extension beyond the reference): an instance whose
     # primal AND dual residuals have improved by less than 1% for this many
     # consecutive termination checks, while already passing OSQP's
     # 100x-relaxed final check, freezes immediately with the exact status a
     # maximum_iteration exit would report (OSQP_SOLVED_INACCURATE).  In
     # float32 ~1% of warm closed-loop instances sit at the residual noise
     # floor just above eps and would otherwise burn every remaining
-    # iteration without changing their (polish-repaired) answer — measured
-    # round 4: same 1.1% of instances still unconverged at a 1000-iteration
-    # cap, with matched-state command error 3.8e-5 (misc/diagnose_tail*.py).
+    # iteration without changing their (polish-repaired) answer.
     # 0 disables (exact OSQP iteration-for-iteration parity).
     stall_checks: int = 3
-    # cold-start initialization (TPU-native extension): "kkt" seeds a solve
+    # cold-start initialization (extension beyond the reference): "kkt" seeds a solve
     # with no warm start at the minimizer of the rho-weighted equality-
     # anchored quadratic model, x0 = M^-1 (A'R clip(0,l,u) - q) — one extra
     # matmul against the already-prepared KKT inverse; "zeros" (default)
-    # starts at the origin like OSQP.  Measured on the quadrotor family
-    # (TPU v5e, B=4096 cold batch): the seed INCREASED cold iterations
-    # (209.8 vs 195.1 mean) — a good primal with zero duals starts the
+    # starts at the origin like OSQP.  On the quadrotor family the seed
+    # increased cold iterations — a good primal with zero duals starts the
     # ADMM off the central path — so the origin stays the default; the
     # option remains for problem families where the equality-anchored
-    # seed lands nearer the constrained optimum.  "kkt_duals" (round-5
-    # attempt 2, acting on that diagnosis) additionally seeds the duals
-    # from the seeded primal's constraint activity,
-    # y0 = rho (A x_seed - clip(A x_seed, l, u)) — the dual step ADMM
-    # itself would take — so the pair starts consistent; see
-    # docs/performance.md for the measured verdict.
+    # seed lands nearer the constrained optimum.  "kkt_duals"
+    # additionally seeds the duals from the seeded primal's constraint
+    # activity, y0 = rho (A x_seed - clip(A x_seed, l, u)) — the dual step
+    # ADMM itself would take — so the pair starts consistent.  Not
+    # measured on the H100.
     cold_start: str = "zeros"
-    # cold-solve rho escalation (TPU-native extension, round-5 cold-start
-    # attempt 2c).  When > 0, a solve with NO warm start runs from this
+    # cold-solve rho escalation (extension beyond the reference).  When
+    # > 0, a solve with NO warm start runs from this
     # initial rho instead of ``rho`` (its shared KKT factor is built
     # under a scalar lax.cond, so warm solves pay nothing).  The closed-
     # loop production rho (0.01) is tuned for the warm regime's f32
     # iteration floor; the cold first solve prefers a much stiffer
-    # penalty — measured on the quadrotor cold batch (TPU v5e, B=4096):
-    # rho 0.01 -> 195.1 mean iterations (p50 AT the 250 cap), rho 0.1 ->
-    # 52.3 (p50 40), with adaptive rho handling the rest of the path.
+    # penalty (on the quadrotor cold batch rho 0.1 cut the cold iterations
+    # about fourfold against 0.01), with adaptive rho handling the rest of
+    # the path.
     # 0 disables (cold solves use ``rho``, OSQP parity).
     cold_rho: float = 0.0
     # advance the warm start one stage along the horizon before each solve
@@ -199,26 +194,20 @@ class LParameters(Parameters):
     warm_start_shift: bool = False
     sigma: float = 1e-6
     scaling_iters: int = 10
-    # fuse iteration blocks into a VMEM-resident Pallas kernel on TPU
-    # (float32, batch divisible by a power-of-two tile); automatic fallback
-    # to the XLA loop otherwise
-    use_pallas: bool = True
 
 
 @dataclasses.dataclass(frozen=True)
 class NLParameters(Parameters):
     """SQP parameters (reference: include/mpc/Types.hpp:121-140).
 
-    ``hessian_reg`` (TPU-native extension) selects the curvature model of
-    the QP subproblem:
+    ``hessian_reg`` (extension beyond the reference) selects the curvature
+    model of the QP subproblem:
 
     * ``"gershgorin"`` (default): exact Lagrangian Hessian shifted by a
-      Gershgorin bound — no factorization at all.  Default because the
-      hardware sweep measured it 2.6x faster than ``"eigh"`` at identical
-      100% success on the production batch (45.2k vs 17.2k solves/s,
-      misc/results/SWEEP_TPU_r2_batch2.txt) — the batched eigh is the
-      single most expensive per-iteration op at large batch and its
-      tighter steps do not pay for themselves on the shipped examples.
+      Gershgorin bound — no factorization at all.  The batched eigh is the
+      most expensive per-iteration op at large batch, and its tighter
+      steps did not pay for themselves on the shipped examples (not
+      measured on the H100).
     * ``"eigh"``: exact Lagrangian Hessian with eigenvalue clipping — the
       tightest convex model and fewest SQP iterations; worth selecting for
       hard nonconvex instances where step quality dominates wall time.
@@ -239,53 +228,53 @@ class NLParameters(Parameters):
     absolute_xtol: float = -1.0
     hard_constraints: bool = True
     hessian_reg: str = "gershgorin"
-    # inner QP engine (TPU-native extension): "fused" (default) runs the
-    # whole batch of float32 subproblems in ONE Pallas kernel per SQP
-    # iteration (ops/qp_inner_pallas.py: in-VMEM Cholesky + ADMM loop,
-    # batch in lanes — the fast production path; float64 solves fall back
-    # to "pdip", and problems past the kernel's VMEM gate fall back to
-    # "riccati" when the structure probe verified the plan, else "admm");
-    # "riccati" solves each subproblem with the banded-KKT interior-point
-    # method (ops/trajectory_kkt.py: Mehrotra IPM whose Newton systems
-    # factor as a bordered block-tridiagonal LDL^T over the horizon — the
-    # scaling engine for large trajectory NLPs, requires the verified
-    # stage-local structure and a gauss_newton/gershgorin/power curvature
-    # mode; degrades to "pdip" otherwise); "pdip" solves each subproblem
-    # with a dense Mehrotra predictor-corrector interior-point method
-    # (~20 iterations of small batched factorizations — the accuracy-
-    # reference engine and the f64 default); "admm" uses the shared
+    # inner QP engine request (extension beyond the reference), resolved by
+    # ops/sqp.py::inner_engine: "fused" (default) runs the whole batch of
+    # float32 subproblems in ONE fused kernel per SQP iteration on a GPU
+    # (ops/qp_inner_pallas.py: Pallas through Triton, KKT inverse + ADMM
+    # loop in registers — the fast production path); float64 solves, the
+    # CPU and problems wider than the kernel takes get "riccati" when the
+    # structure probe verified the plan, else "admm" for too-wide float32
+    # and "pdip" otherwise.  "riccati" solves each subproblem with the
+    # banded-KKT interior-point method (ops/trajectory_kkt.py: Mehrotra IPM
+    # whose Newton systems factor as a bordered block-tridiagonal LDL^T over
+    # the horizon — the scaling engine for large trajectory NLPs, requires
+    # the verified stage-local structure and a gauss_newton/gershgorin/power
+    # curvature mode; degrades to "pdip" otherwise); "pdip" solves each
+    # subproblem with a dense Mehrotra predictor-corrector interior-point
+    # method (~20 iterations of small batched factorizations — the
+    # accuracy-reference engine and the f64 default); "admm" uses the shared
     # OSQP-style XLA kernel
     inner_qp: str = "fused"
-    # TPU-native extension (the reference has verbose only on LParameters):
-    # prints a per-solve SQP iteration summary, mirroring LMPC's behavior
+    # extension beyond the reference (which has verbose only on
+    # LParameters): prints a per-solve SQP iteration summary, mirroring
+    # LMPC's behavior
     verbose: bool = False
-    # batched-solve straggler compaction (TPU-native extension): run the
-    # SQP loop in short full-batch chunks until the unconverged count
+    # batched-solve straggler compaction (extension beyond the reference):
+    # run the SQP loop in short full-batch chunks until the unconverged count
     # falls to ~1/4 of the batch, then gather those instances and finish
     # only them.  The per-instance iteration sequence is preserved
     # exactly (chunking partitions the same loop); results can differ at
-    # rounding level only through the fused inner-QP kernel's lane-tile
-    # membership.  Applies to batched solves with batch >= 128.
-    # Default OFF: the hardware A/B at the production bench size measured
-    # it neutral-to-slightly-negative (44.4k vs 45.3k solves/s,
-    # misc/results/SWEEP_TPU_r2_batch2.txt) — worth enabling only when
+    # rounding level only through the fused inner-QP kernel's tiling.
+    # Applies to batched solves with batch >= 128.  Default OFF: it
+    # measured neutral at the production bench size on the earlier
+    # platform (not measured on the H100) — worth enabling only when
     # per-instance NLPs are large enough that the straggler tail dominates.
     compact_stragglers: bool = False
-    # trajectory-IPM iteration policy (TPU-native extension, applies to the
-    # "riccati" banded-KKT inner engine only).  ``inner_iters`` caps the
-    # Mehrotra IPM per subproblem (0 = the measured flat-45 default);
+    # trajectory-IPM iteration policy (extension beyond the reference,
+    # applies to the "riccati" banded-KKT inner engine only).
+    # ``inner_iters`` caps the Mehrotra IPM per subproblem (0 = a flat 45);
     # setting ``inner_iters_recovery`` above it escalates a lane's cap
     # after an outer line-search failure (folded into the done mask, so
-    # the compiled loop keeps a static trip bound).  Escalation was
-    # measured SLOWER than the flat default on the oscillator bench
-    # (lockstep pays the max lane's cap and failing lanes are per-step
-    # common: esc30/60 214 vs flat45 329 solves/s at equal success,
-    # misc/ab_osc_escalation.py) — the knobs remain for families with
-    # genuinely rare deep lanes; prefer ``rescue_iters`` otherwise.
+    # the compiled loop keeps a static trip bound).  Escalation measured
+    # slower than the flat cap on the oscillator bench (lockstep pays the
+    # max lane's cap and failing lanes are per-step common; not measured
+    # on the H100) — the knobs remain for families with genuinely rare
+    # deep lanes; prefer ``rescue_iters`` otherwise.
     inner_iters: int = 0
     inner_iters_recovery: int = 0
-    # compacted two-phase rescue in closed-loop rollouts (TPU-native
-    # extension, rollout.py).  When > 0: each rollout step first solves
+    # compacted two-phase rescue in closed-loop rollouts (extension beyond
+    # the reference, rollout.py).  When > 0: each rollout step first solves
     # the whole batch at the configured (fast) settings, then gathers the
     # lanes whose solve FAILED — at most max(16, B//16) of them — and
     # re-solves only those from the same entry state with the IPM cap set
@@ -294,14 +283,13 @@ class NLParameters(Parameters):
     # deep cap is paid only where a lane actually failed, at compacted
     # batch cost instead of full-batch lockstep cost.
     rescue_iters: int = 0
-    # per-lane warm-start reset after a FAILED solve (TPU-native
-    # extension, closed-loop rollouts).  A lane whose solve ended
+    # per-lane warm-start reset after a FAILED solve (extension
+    # beyond the reference, closed-loop rollouts).  A lane whose solve ended
     # roundoff-limited at an infeasible point carries its stuck iterate
     # into the next step's (shifted) warm start and tends to stay stuck
     # for several consecutive steps while the held command drives the
-    # plant blind (measured on the UGV obstacle benchmark: every f32
-    # obstacle incursion coincides with such a failure run,
-    # misc/diagnose_ugv.py).  With this flag the failed lane re-enters
+    # plant blind (on the UGV obstacle benchmark every f32 obstacle
+    # incursion coincided with such a failure run).  With this flag the failed lane re-enters
     # from the cold initial guess (X=x0, U=u0) at the next step instead —
     # healthy lanes keep their warm starts.  The reference carries its
     # opt_vector unconditionally (NLOptimizer.hpp:426-510); this is a

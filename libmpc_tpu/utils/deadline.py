@@ -4,7 +4,7 @@ The reference hands ``Parameters::time_limit`` (seconds,
 reference: include/mpc/Types.hpp:108-110) to its solvers, which consult a
 wall clock inside their iteration loops (OSQP ``settings->time_limit``,
 LOptimizer.hpp:256; nlopt ``set_maxtime``, NLMPC.hpp:142-144).  A compiled
-TPU program cannot read a wall clock mid-solve, so the contract is honored
+device program cannot read a wall clock mid-solve, so the contract is honored
 with a *measured-cost iteration budget*: the controller measures the
 per-iteration wall cost of its own compiled solve and converts the deadline
 into a traced iteration cap for the next solve.  Solvers stopped by the cap

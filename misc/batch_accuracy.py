@@ -16,7 +16,7 @@ in the bench batch:
 
 Usage:
   LIBMPC_PLATFORM=cpu JAX_ENABLE_X64=1 python misc/batch_accuracy.py --ref
-  python misc/batch_accuracy.py            # on the TPU
+  python misc/batch_accuracy.py            # on the GPU
 """
 
 from __future__ import annotations
@@ -86,7 +86,7 @@ def make_reference():
     # production ones
     params = LParameters(maximum_iteration=4000, enable_warm_start=True,
                          eps_abs=1e-9, eps_rel=1e-9, rho=0.1,
-                         polish=True, polish_mode="dense", use_pallas=False)
+                         polish=True, polish_mode="dense")
     cold, warm = _two_steps(params, jnp.float64)
     os.makedirs(os.path.dirname(REF_PATH), exist_ok=True)
     np.savez(REF_PATH, cold=cold, warm=warm)

@@ -51,7 +51,7 @@ def lmpc_oracle():
     c.set_optimizer_parameters(LParameters(
         maximum_iteration=4000, enable_warm_start=True, warm_start_shift=True,
         eps_abs=1e-9, eps_rel=1e-9, rho=0.1,
-        polish=True, polish_mode="dense", use_pallas=False,
+        polish=True, polish_mode="dense",
     ))
     Ad, Bd = _quadrotor_model()
     Adj, Bdj = jnp.asarray(Ad, dtype), jnp.asarray(Bd, dtype)
@@ -106,7 +106,8 @@ def ugv_oracle():
     across batch sizes)."""
     import dataclasses as dc
 
-    from bench import _make_ugv, _ugv_run_chunks
+    from bench import _make_ugv
+    from libmpc_tpu.rollout import nlmpc_rollout
 
     B_ugv = int(os.environ.get("LIBMPC_UGV_ORACLE_B", 256))
     K_ugv = int(os.environ.get("LIBMPC_UGV_ORACLE_K", 150))
@@ -120,16 +121,10 @@ def ugv_oracle():
     c.set_optimizer_parameters(dc.replace(
         c._params, inner_qp="pdip", hessian_reg="gauss_newton",
         maximum_iteration=300))
-    # the bench's exact chunked schedule (warm restart every 30 steps) so
-    # the compared trajectories share the restart boundaries
-    pieces = _ugv_run_chunks(c, plant, params_fn, x0, K_ugv)
-    inputs = np.concatenate([np.asarray(p.inputs) for p in pieces], axis=1)
-    states = np.concatenate(
-        [np.asarray(p.states)[:, :-1] for p in pieces]
-        + [np.asarray(pieces[-1].states)[:, -1:]], axis=1)
-    sts = np.concatenate([np.asarray(p.statuses) for p in pieces], axis=1)
-    iters = np.concatenate(
-        [np.asarray(p.iterations) for p in pieces], axis=1)
+    r = nlmpc_rollout(c, plant, x0, jnp.zeros((B_ugv, 2), dtype), K_ugv,
+                      params_fn=params_fn)
+    inputs, states = np.asarray(r.inputs), np.asarray(r.states)
+    sts, iters = np.asarray(r.statuses), np.asarray(r.iterations)
     ok = (sts == 0).mean()
     # the nonconvex obstacle rows leave a handful of solves at
     # MAX_ITERATION even in f64; statuses are stored so the bench masks

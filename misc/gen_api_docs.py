@@ -37,7 +37,8 @@ SECTIONS = [
      ["lmpc_rollout", "nlmpc_rollout", "Rollout"]),
     ("QP solver (OSQP-equivalent ADMM)", "libmpc_tpu.ops.admm",
      ["admm_solve", "prepare_qp", "QPSolution", "PreparedQP"]),
-    ("NLP solver (SQP)", "libmpc_tpu.ops.sqp", ["sqp_solve", "SQPSolution"]),
+    ("NLP solver (SQP)", "libmpc_tpu.ops.sqp",
+     ["sqp_solve", "inner_engine", "SQPSolution"]),
     ("Inner-QP engines", "libmpc_tpu.ops.qp_inner_pallas",
      ["solve_batched", "make_inner_qp_solver", "supported"]),
     ("Interior-point engine", "libmpc_tpu.ops.pdip", ["pdip_solve"]),

@@ -1,6 +1,6 @@
-"""Two-process ``jax.distributed`` dryrun over localhost (the DCN analog).
+"""Two-process ``jax.distributed`` dryrun over localhost.
 
-The reference is single-process (SURVEY §2.3); the TPU framework's multi-host
+The reference is single-process (SURVEY §2.3); this framework's multi-host
 story is ``jax.distributed.initialize`` + one global mesh + ``shard_map``
 (``libmpc_tpu/parallel/mesh.py``).  Single-process tests exercise the mesh on
 8 virtual devices, but nothing there proves the program actually runs across

@@ -175,7 +175,7 @@ def oscillators_anchor(n_steps: int) -> dict:
     """Networked-oscillators NLMPC (the reference's largest example,
     examples/networked_oscillators_ex.cpp: 12 states / 6 inputs, ph=20,
     ch=10 -> nz=301) under SciPy SLSQP with FD derivatives — the CPU-scale
-    anchor for the TPU bench's ``nlmpc_osc_solves_per_s`` section."""
+    anchor for the bench's ``nlmpc_osc_solves_per_s`` section."""
     from scipy.optimize import minimize
 
     N, mu, kcpl = 6, 1.0, 0.1
@@ -218,11 +218,11 @@ def oscillators_anchor(n_steps: int) -> dict:
         Uall = np.vstack([U, U[-1]])
         return (0.5 - Uall).ravel()
 
-    # instance 0 of the TPU bench's inputs EXACTLY (bench._nlmpc_osc_bench:
+    # instance 0 of the bench's inputs EXACTLY (bench._nlmpc_osc_bench:
     # seed-13 rng draws x0 of shape (B, nx) then per-step 0.01*normal process
     # noise of shape (K, B, nx); drawing at the bench's B and slicing row 0
     # reproduces the identical stream), so the anchor's warm-started closed
-    # loop solves the same disturbed problem sequence the TPU bench does
+    # loop solves the same disturbed problem sequence the bench does
     bench_B = 256
     rng = np.random.default_rng(13)
     x = rng.uniform(-0.5, 0.5, size=(bench_B, nx))[0]

@@ -326,7 +326,7 @@ class TestMaxIterInaccurateStatuses:
         # no stall detection, so the staged maximum_iteration expectations
         # below see exactly OSQP's iterate trajectory
         return LParameters(
-            polish=False, check_termination=1, use_pallas=False,
+            polish=False, check_termination=1,
             compact_stragglers=False, eps_abs=1e-12, eps_rel=1e-12,
             cold_start="zeros", stall_checks=0, **kw)
 
@@ -338,7 +338,7 @@ class TestMaxIterInaccurateStatuses:
         q = jnp.array([[1.0, 1.0]])
         l = jnp.array([[1.0, 0.0, 0.0]])
         u = jnp.array([[1.0, 0.7, 0.7]])
-        base = dict(polish=False, check_termination=5, use_pallas=False,
+        base = dict(polish=False, check_termination=5,
                     compact_stragglers=False, cold_start="zeros",
                     stall_checks=0)
         # converge exactly at eps=1e-10 to learn the iteration count
@@ -438,7 +438,7 @@ class TestRound4Knobs:
         P, A, q, l, u = self._problem()
         import dataclasses
         base = LParameters(maximum_iteration=4000, eps_abs=1e-9,
-                           eps_rel=1e-9, polish=False, use_pallas=False,
+                           eps_rel=1e-9, polish=False,
                            compact_stragglers=False)
         sa = admm.admm_solve(P, A, q, l, u,
                              dataclasses.replace(base, cold_start="zeros"))
@@ -455,7 +455,7 @@ class TestRound4Knobs:
         P, A, q, l, u = self._problem(seed=3)
         import dataclasses
         base = LParameters(maximum_iteration=4000, eps_abs=1e-9,
-                           eps_rel=1e-9, polish=False, use_pallas=False,
+                           eps_rel=1e-9, polish=False,
                            compact_stragglers=False)
         sa = admm.admm_solve(P, A, q, l, u,
                              dataclasses.replace(base, cold_start="zeros"))
@@ -472,7 +472,7 @@ class TestRound4Knobs:
         P, A, q, l, u = self._problem(seed=5)
         import dataclasses
         base = LParameters(maximum_iteration=4000, eps_abs=1e-9,
-                           eps_rel=1e-9, polish=False, use_pallas=False,
+                           eps_rel=1e-9, polish=False,
                            compact_stragglers=False, enable_warm_start=True)
         hot = dataclasses.replace(base, cold_rho=0.5)
         zx = jnp.zeros((q.shape[0], P.shape[0]))
@@ -498,7 +498,7 @@ class TestRound4Knobs:
         P, A, q, l, u = self._problem()
         import dataclasses
         base = LParameters(maximum_iteration=300, polish=False,
-                           use_pallas=False, compact_stragglers=False,
+                           compact_stragglers=False,
                            check_termination=5)
         sa = admm.admm_solve(P, A, q, l, u,
                              dataclasses.replace(base, stall_checks=0))
@@ -517,7 +517,7 @@ class TestRound4Knobs:
         args = [jnp.asarray(np.asarray(a), f32) for a in (P, A, q, l, u)]
         import dataclasses
         base = LParameters(maximum_iteration=800, polish=False,
-                           use_pallas=False, compact_stragglers=False,
+                           compact_stragglers=False,
                            check_termination=5, adaptive_rho=False, rho=0.1)
         # learn the instance's f32 residual floor: run to the cap at an
         # unreachable tolerance and read the final residuals

@@ -1,11 +1,10 @@
-"""Tests for the fused batched small-linalg Pallas kernels and the
+"""Tests for the explicit SPD inverse (ops/batched_linalg.py) and the
 compensated (double-single) residual arithmetic used by the LMPC polish.
 
 Reference context: OSQP's polish solves its active-set KKT systems with a
-float64 sparse LDL factorization (osqp polish.c); the TPU-native design
-reaches the same accuracy class from float32 via exact-product splits and
-error-free additions (ops/admm.py::_comp_mm) plus a batched Pallas Cholesky
-(ops/batched_linalg.py).
+float64 sparse LDL factorization (osqp polish.c); this design reaches the
+same accuracy class from float32 via exact-product splits and error-free
+additions (ops/admm.py::_comp_mm) plus explicit small SPD inverses.
 """
 
 import numpy as np
@@ -17,7 +16,7 @@ import jax.numpy as jnp
 from libmpc_tpu.ops import admm, batched_linalg
 
 
-class TestCholInverse:
+class TestSpdInverse:
     def _spd_batch(self, B, k, seed=0):
         rng = np.random.default_rng(seed)
         Q = rng.normal(size=(B, k, k)).astype(np.float32)
@@ -25,70 +24,19 @@ class TestCholInverse:
             k, dtype=np.float32
         )
 
-    def test_xla_path_matches_numpy(self):
-        C = self._spd_batch(5, 12)
-        Ci = np.asarray(batched_linalg.chol_inverse(jnp.asarray(C)))
+    @pytest.mark.parametrize("k", [8, 24, 48, 96])
+    def test_matches_numpy(self, k):
+        C = self._spd_batch(5, k, seed=k)
+        Ci = np.asarray(batched_linalg.spd_inverse(jnp.asarray(C)))
         ref = np.linalg.inv(C.astype(np.float64))
-        assert np.abs(Ci - ref).max() < 1e-4 * np.abs(ref).max()
-
-    def test_pallas_kernel_interpret_matches(self):
-        # the TPU kernel path, run through the interpreter on CPU
-        C = self._spd_batch(7, 17, seed=3)
-        Ci = np.asarray(
-            batched_linalg._chol_inverse_pallas(jnp.asarray(C), interpret=True)
-        )
-        ref = np.linalg.inv(C.astype(np.float64))
-        resid = np.einsum("bij,bjk->bik", C.astype(np.float64), Ci)
-        assert np.abs(resid - np.eye(17)).max() < 1e-4
+        assert Ci.dtype == np.float32
         assert np.abs(Ci - ref).max() < 1e-3 * np.abs(ref).max()
 
-    def test_vmem_size_gate(self):
-        # working set is 6 * k^2 * 128 * 4 bytes against the 8 MB scoped
-        # budget: the polish (k ~ 48) and small-SOC (k ~ 20) sizes pass,
-        # a (128,128) block (rejected on hardware with "Scoped allocation
-        # 31.68M, limit 16.00M") and the oscillators SOC size (k = 240)
-        # must be gated out
-        assert batched_linalg.kernel_supported(20)
-        assert batched_linalg.kernel_supported(48)
-        assert not batched_linalg.kernel_supported(128)
-        assert not batched_linalg.kernel_supported(160)
-        assert not batched_linalg.kernel_supported(240)
-
-    def test_oversized_matrix_takes_blocked_path_even_forced(self):
-        # k past the gate: force_kernel must NOT attempt the monolithic
-        # Pallas kernel (it cannot lower on TPU — VMEM OOM at compile
-        # time); the blocked Schur recursion answers instead
-        C = self._spd_batch(2, 160, seed=9)
-        Ci = np.asarray(
-            batched_linalg.chol_inverse(jnp.asarray(C), force_kernel=True)
-        )
-        resid = np.einsum("bij,bjk->bik", C.astype(np.float64), Ci)
-        assert np.abs(resid - np.eye(160)).max() < 1e-2
-
-    def test_blocked_inverse_two_level_recursion(self):
-        # k=301 (the networked-oscillators KKT size): 128 + (128 + 45)
-        # blocks — two recursion levels, partial trailing block
-        C = self._spd_batch(2, 301, seed=11)
-        Ci = np.asarray(batched_linalg._chol_inverse_blocked(
-            jnp.asarray(C), interpret=True))
-        resid = np.einsum("bij,bjk->bik", C.astype(np.float64), Ci)
-        assert np.abs(resid - np.eye(301)).max() < 5e-3
-
-    def test_spd_inverse_routes_under_vmap(self):
-        C = self._spd_batch(6, 24, seed=13)
-        Ci = np.asarray(jax.vmap(batched_linalg.spd_inverse)(jnp.asarray(C)))
-        ref = np.linalg.inv(C.astype(np.float64))
-        assert np.abs(Ci - ref).max() < 1e-3 * np.abs(ref).max()
-
-    def test_pallas_kernel_pads_partial_tile(self):
-        # batch not a multiple of the 128-lane tile: padding must not
-        # corrupt the real instances
-        C = self._spd_batch(3, 9, seed=5)
-        Ci = np.asarray(
-            batched_linalg._chol_inverse_pallas(jnp.asarray(C), interpret=True)
-        )
-        resid = np.einsum("bij,bjk->bik", C.astype(np.float64), Ci)
-        assert np.abs(resid - np.eye(9)).max() < 1e-4
+    def test_vmap_matches_batched_call(self):
+        C = jnp.asarray(self._spd_batch(6, 24, seed=13))
+        Cv = np.asarray(jax.vmap(batched_linalg.spd_inverse)(C))
+        Cb = np.asarray(batched_linalg.spd_inverse(C))
+        np.testing.assert_allclose(Cv, Cb, rtol=1e-5, atol=1e-6)
 
 
 class TestCompensatedMatmul:

@@ -4,7 +4,7 @@ The reference compiles every test twice — static template dims and dynamic
 runtime dims (test/CMakeLists.txt:56-65).  Under XLA both collapse to
 "shapes are static per compile", so the meaningful second mode here is
 *precision*: the parity suite runs in float64 (the reference's domain), and
-this file re-runs the key goldens in float32 — the TPU production dtype —
+this file re-runs the key goldens in float32 — the production dtype on the GPU —
 at the accuracy that precision supports.
 
 The float32 accuracy bound is set by the conditioning of the rounded problem

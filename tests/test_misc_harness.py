@@ -37,8 +37,8 @@ class TestBenchScript:
         env = dict(os.environ)
         env["LIBMPC_PLATFORM"] = "cpu"
         # shrink every section to smoke size: the full-size closed-loop
-        # rollouts (16384x16 LMPC scan, nz=301 oscillators) are TPU
-        # workloads that take far past the timeout to compile+run on CPU
+        # rollouts (16384x16 LMPC scan, nz=301 oscillators) take far past
+        # the timeout to compile+run on CPU
         env.update({
             "LIBMPC_CL_B": "8", "LIBMPC_CL_K": "2",
             "LIBMPC_NL_CL_B": "4", "LIBMPC_NL_CL_K": "2",
@@ -46,9 +46,9 @@ class TestBenchScript:
             "LIBMPC_NL_B": "8",
             "LIBMPC_UGV_B": "4", "LIBMPC_UGV_K": "2",
             "LIBMPC_PEAK_SIZE": "256",
-            # round-5 sections: the latency table (multi-batch compiles,
-            # serving loop) and the osc B-scaling curve are TPU
-            # workloads; the HBM probe just needs a smaller buffer on CPU
+            # the latency table (multi-batch compiles, serving loop) and
+            # the osc B-scaling curve are accelerator workloads; the HBM
+            # probe just needs a smaller buffer on CPU
             "LIBMPC_SKIP_LATENCY": "1",
             "LIBMPC_SKIP_OSC_SCALING": "1",
             "LIBMPC_HBM_PROBE_MB": "64",
@@ -65,3 +65,6 @@ class TestBenchScript:
             assert key in data
         assert data["unit"] == "solves/s"
         assert data["value"] > 0
+        # a rehearsal says where it ran
+        assert data["platform"] == "cpu"
+        assert data["device_count"] >= 1

@@ -420,7 +420,7 @@ class TestPerInstanceHardBounds:
 
 
 class TestHessianModes:
-    """The curvature-model knob (TPU-native extension; the reference's SLSQP
+    """The curvature-model knob (extension beyond the reference; the reference's SLSQP
     is itself a damped-BFGS SQP, NLOptimizer.hpp:64).  Every mode must drive
     the same VdP closed loop to the same commands as the exact-Hessian
     default."""
@@ -527,10 +527,9 @@ class TestSQPStragglerCompaction:
 
 
 class TestFusedEngineSizeGate:
-    """An inner_qp="fused" request whose subproblem exceeds the Pallas
-    kernel's VMEM budget must degrade gracefully to an XLA engine instead of
-    failing at Mosaic lowering (the (nz, nz, 128) factorization scratch is
-    quadratic in the decision size)."""
+    """An inner_qp="fused" request whose subproblem is wider than the fused
+    kernel takes (its matrices live in registers) must degrade gracefully to
+    an XLA engine instead of failing to compile."""
 
     def test_supported_gate_boundaries(self):
         from libmpc_tpu.ops import qp_inner_pallas
@@ -541,10 +540,9 @@ class TestFusedEngineSizeGate:
         assert not qp_inner_pallas.supported(301, 553)
 
     def test_oversized_fused_request_degrades_gracefully(self):
-        # ph=20/ch=4 puts nz at 45 and the (45, 45, 128) scratch set past
-        # the VMEM budget: the solve must silently use the inner-ADMM
-        # engine (the measured-faster f32 oversize fallback) and still
-        # succeed
+        # ph=20/ch=4 puts nz at 45, past the kernel's padded width of 32:
+        # the solve must use the inner-ADMM engine (the f32 oversize
+        # fallback) and still succeed
         from libmpc_tpu.ops import qp_inner_pallas
 
         ph, ch = 20, 4
@@ -571,17 +569,16 @@ class TestFusedEngineSizeGate:
 
 
 class TestLargeEqualitySOC:
-    """Past the batched-Cholesky VMEM gate (me = ph*nx > ~133, e.g. the
-    networked oscillators at me=240 — the r2 hardware lowering failure) the
-    second-order correction must route through the matrix-free CG solve and
-    the whole SQP still run."""
+    """Past the dense second-order-correction size (many equality rows,
+    e.g. the networked oscillators at me=240) the correction must route
+    through the matrix-free CG solve and the whole SQP still run."""
 
     def test_large_me_solve_runs_and_converges(self):
-        from libmpc_tpu.ops import batched_linalg
+        from libmpc_tpu.ops import sqp
 
         ph, ch = 80, 4
         me = ph * 2
-        assert not batched_linalg.kernel_supported(me)
+        assert me > sqp._SOC_DENSE_MAX_ROWS
         c = NLMPC(nx=2, nu=1, ny=2, ph=ph, ch=ch, ineq=0, eq=0,
                   dtype=jnp.float32)
         c.set_discretization_sampling_time(0.05)

@@ -1,7 +1,7 @@
 """Mesh / fleet-parallel tests on the virtual 8-device CPU mesh.
 
 The reference has no distributed runtime (SURVEY §2.3); these tests cover the
-new TPU-native scaling layer: sharded fleet solves must agree exactly with
+new scenario-parallel scaling layer: sharded fleet solves must agree exactly with
 unsharded batched solves, and fleet stats must aggregate across the mesh.
 """
 

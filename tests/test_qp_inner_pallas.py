@@ -1,5 +1,5 @@
-"""Tests for the fused batched inner-QP Pallas kernel (ops/qp_inner_pallas)
-and the ``inner_qp="fused"`` SQP mode.
+"""Tests for the fused batched inner-QP kernel (ops/qp_inner_pallas, Pallas
+through Triton) and the ``inner_qp="fused"`` SQP mode.
 
 Reference context: the SQP subproblems the reference hands to NLopt/SLSQP's
 internal QP layer (include/mpc/NLMPC/NLOptimizer.hpp:64); here a whole batch
@@ -14,7 +14,7 @@ import jax
 import jax.numpy as jnp
 
 from libmpc_tpu import NLMPC
-from libmpc_tpu.ops import admm, qp_inner_pallas as qip
+from libmpc_tpu.ops import admm, qp_inner_pallas as qip, sqp
 from libmpc_tpu.types import LParameters, NLParameters
 
 
@@ -69,18 +69,24 @@ class TestFusedKernel:
         assert bool(np.asarray(done).any())
 
     def test_partial_tile_padding(self):
-        # B=3 pads to a 128-lane tile by edge replication; results for the
-        # real instances must be unaffected and the pad must converge
+        # B=3 pads to a 4-instance tile by edge replication and (7, 17)
+        # pads to (8, 32): results for the real instances must match the
+        # unpadded one-instance tiles and every instance must converge
         B, n, me, mi = 3, 7, 2, 1
         P, A, q, l, u, eq = _random_qps(B, n, me, mi, seed=2)
         m = A.shape[1]
         rho = np.broadcast_to(np.where(eq, 100.0, 0.1), (B, m)).astype(np.float32)
+        args = [jnp.asarray(v) for v in (P, A, q, l, u, rho)]
+        x0 = jnp.zeros((B, n), jnp.float32)
+        y0 = jnp.zeros((B, m), jnp.float32)
         x, *_ , done, pri, dua = qip.solve_batched(
-            *map(jnp.asarray, (P, A, q, l, u, rho)),
-            jnp.zeros((B, n), jnp.float32), jnp.zeros((B, m), jnp.float32),
-            max_iter=500, interpret=True)
+            *args, x0, y0, max_iter=500, tile=4, interpret=True)
+        x1, *_ = qip.solve_batched(
+            *args, x0, y0, max_iter=500, tile=1, interpret=True)
+        assert x.shape == (B, n)
         assert np.isfinite(np.asarray(x)).all()
         assert np.asarray(done).all()
+        np.testing.assert_allclose(np.asarray(x), np.asarray(x1), atol=1e-6)
 
     def test_custom_vmap_dispatch(self):
         # the per-instance wrapper under vmap must produce the same result
@@ -117,13 +123,17 @@ class TestFusedSQPMode:
         c.set_ineq_con_function(lambda X, Y, U, e: U[:, 0] - 0.5)
         return c
 
-    def test_fused_matches_pdip_commands(self):
+    def test_fused_matches_pdip_commands(self, fused_kernel_interpreted):
         rng = np.random.default_rng(1)
         x0 = rng.normal(size=(4, 2)).astype(np.float32)
         u0 = np.zeros((4, 1), np.float32)
         cmds = {}
         for inner in ("pdip", "fused"):
             c = self._vdp_controller(inner)
+            d = c.dims
+            assert sqp.inner_engine(
+                c._params, c.dtype, d.nz, d.ph * d.nx + d.eq, d.ineq,
+                c._get_traj_plan()) == inner
             res = c.optimize(x0, u0)
             assert (np.asarray(res.status) == 0).all(), inner
             cmds[inner] = np.asarray(res.cmd)

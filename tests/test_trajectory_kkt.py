@@ -106,44 +106,14 @@ class TestFactorSolve:
         rel = np.abs(x - x_dense).max() / np.abs(x_dense).max()
         assert rel < 1e-9, rel
 
-    @pytest.mark.parametrize("ph,ch,nx,nu", [(6, 4, 3, 2), (20, 10, 12, 6)])
-    def test_sweep_kernels_match_sequential(self, ph, ch, nx, nu):
-        """The fused Pallas sweep kernels (interpret mode on CPU) must
-        reproduce the sequential recursion bit-for-bit up to fused-op
-        rounding (ops/trajectory_sweeps.py)."""
-        from libmpc_tpu.ops import trajectory_sweeps as ts
-
+    @pytest.mark.parametrize("ph,ch,nx,nu", [(6, 4, 3, 2), (20, 10, 12, 6),
+                                             (5, 3, 2, 1), (10, 5, 2, 1)])
+    def test_f32_factor_solve_under_vmap_matches_dense(self, ph, ch, nx, nu):
+        """The production batched path: float32 factor and solve under
+        ``vmap`` against a float64 dense solve of each assembled matrix."""
         plan = tk.TrajPlan(ph=ph, ch=ch, nx=nx, nu=nu, mi=3)
         bs, w = plan.bs, plan.w
-        rng = np.random.default_rng(1)
-        B = 3
-        f32 = jnp.float32
-        r32 = lambda *s: jnp.asarray(rng.normal(size=s), f32)
-        Sinv = r32(B, ph, bs, bs) * 0.1 + jnp.eye(bs, dtype=f32)
-        L = 0.3 * r32(B, ph - 1, bs, bs)
-        X = 0.3 * r32(B, ph, bs, w)
-        Gi = r32(B, w, w) * 0.1 + jnp.eye(w, dtype=f32)
-        rs = r32(B, ph, bs)
-        rg = r32(B, w)
-        seq = jax.vmap(
-            lambda s, l, x, gi, a, b: tk._traj_solve_seq(
-                plan, tk.TrajFactors(s, l, x, gi), a, b)
-        )(Sinv, L, X, Gi, rs, rg)
-        ker = ts.batched_sweep_solve(Sinv, L, X, Gi, rs, rg, interpret=True)
-        scale = float(jnp.abs(seq[0]).max()) + 1.0
-        assert float(jnp.abs(seq[0] - ker[0]).max()) / scale < 1e-5
-        assert float(jnp.abs(seq[1] - ker[1]).max()) / scale < 1e-5
-
-    @pytest.mark.parametrize("ph,ch,nx,nu", [(6, 4, 3, 2), (5, 3, 2, 1)])
-    def test_factor_kernel_matches_sequential(self, ph, ch, nx, nu):
-        """The fused Pallas factorization kernel (interpret mode) must
-        reproduce the sequential stage elimination on quasi-definite
-        data (ops/trajectory_sweeps.batched_factor)."""
-        from libmpc_tpu.ops import trajectory_sweeps as ts
-
-        plan = tk.TrajPlan(ph=ph, ch=ch, nx=nx, nu=nu, mi=3)
-        bs, w, bs_p = plan.bs, plan.w, plan.bs_p
-        rng = np.random.default_rng(5)
+        rng = np.random.default_rng(ph * 10 + nx)
         B = 3
         f32 = jnp.float32
         Ms = [_quasidef_banded(rng, plan) for _ in range(B)]
@@ -157,16 +127,19 @@ class TestFactorSolve:
             [[M[k*bs:(k+1)*bs, ph*bs:] for k in range(ph)] for M in Ms]),
             f32)
         G = jnp.asarray(np.stack([M[ph*bs:, ph*bs:] for M in Ms]), f32)
-        ref = jax.vmap(
-            lambda d, l, c, g: tuple(tk._traj_factor_seq(plan, d, l, c, g))
-        )(D, L, C, G)
-        Sinv_k, X_k, Ghat_k = ts.batched_factor(D, L, C, G, bs_p,
-                                                interpret=True)
-        Gi_k = jax.vmap(jnp.linalg.inv)(
-            0.5 * (Ghat_k + jnp.swapaxes(Ghat_k, -1, -2)))
-        for a, b in [(ref[0], Sinv_k), (ref[2], X_k), (ref[3], Gi_k)]:
-            rel = float(jnp.abs(a - b).max()) / (float(jnp.abs(a).max()) + 1e-9)
-            assert rel < 1e-3, rel
+        r = rng.normal(size=(B, ph * bs + w))
+        f = jax.vmap(lambda d, l, c, g: tk.traj_factor(plan, d, l, c, g))(
+            D, L, C, G)
+        xs, xg = jax.vmap(lambda f, rr: tk.traj_solve(
+            plan, f, rr[: ph * bs].reshape(ph, bs), rr[ph * bs:]))(
+            f, jnp.asarray(r, f32))
+        assert xs.dtype == f32
+        x = np.concatenate([np.asarray(xs).reshape(B, -1), np.asarray(xg)],
+                           axis=1)
+        for b in range(B):
+            ref = np.linalg.solve(Ms[b], r[b])
+            rel = np.abs(x[b] - ref).max() / np.abs(ref).max()
+            assert rel < 1e-3, (b, rel)
 
     def test_batched_under_vmap(self):
         plan = tk.TrajPlan(ph=5, ch=3, nx=2, nu=1, mi=2)

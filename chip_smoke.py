@@ -349,7 +349,6 @@ def _vdp_subproblems(B: int, seed: int = 0):
 
     import bench
     from libmpc_tpu.nlmpc import problem as nlp
-    from libmpc_tpu.ops import admm
     from libmpc_tpu.ops.sqp import _gershgorin_convexify
 
     f32 = jnp.float32
@@ -379,12 +378,8 @@ def _vdp_subproblems(B: int, seed: int = 0):
     x0 = jnp.asarray(
         np.random.default_rng(seed).uniform(-1, 1, size=(B, 2)), f32)
     P, A, q, lo, hi = jax.jit(jax.vmap(one))(x0)
-    me = dims.ph * dims.nx
-    eq = jnp.arange(A.shape[1]) < me
-    loose = (lo <= -1e18) & (hi >= 1e18)
-    rho = jax.vmap(lambda lz: admm._rho_vec_of(jnp.asarray(0.1, f32), eq, lz))(
-        loose)
-    return P, A, q, lo, hi, rho, eq
+    eq = jnp.arange(A.shape[1]) < dims.ph * dims.nx
+    return P, A, q, lo, hi, eq
 
 
 def phase_kernels(card: str, B: int = 4096, reps: int = 5,
@@ -392,8 +387,15 @@ def phase_kernels(card: str, B: int = 4096, reps: int = 5,
     """P6: the fused inner-QP kernel (ops/qp_inner_pallas.py) on B first
     SQP subproblems of the Van der Pol NLMPC (nz=26, m_qp=57) against the
     plain XLA reference, ADMM vmapped over the batch (ops/admm.py, same
-    algorithm and settings, float32 at ``highest`` matmul precision).
-    Times alternate plain, kernel, kernel, plain; they are findings, not
+    algorithm and settings, float32 at ``highest`` matmul precision, no
+    stall freeze since the kernel has none).
+
+    Convergence is compared at a 1000-iteration cap.  At the SQP's own cap
+    of 300 about a tenth of these cold subproblems stop at the cap, and
+    float32 rounding moves instances across that line both ways: two
+    builds of one engine differ there by up to a percent.  At 1000 almost
+    every instance converges in both.  Times are taken at the SQP's cap,
+    alternating plain, kernel, kernel, plain; they are findings, not
     gates."""
     import jax
     import jax.numpy as jnp
@@ -403,54 +405,61 @@ def phase_kernels(card: str, B: int = 4096, reps: int = 5,
     from libmpc_tpu.types import LParameters
 
     ph = Phase("P6_kernels", card)
-    P, A, q, lo, hi, rho, eq = _vdp_subproblems(B)
+    P, A, q, lo, hi, eq = _vdp_subproblems(B)
     n, m = q.shape[1], A.shape[1]
-    kw = dict(sigma=1e-5, alpha=1.6, eps_abs=5e-6, eps_rel=5e-6,
-              max_iter=300, check_every=25)
     x0 = jnp.zeros((B, n), jnp.float32)
     y0 = jnp.zeros((B, m), jnp.float32)
 
-    def kernel():
-        return qip.solve_batched(P, A, q, lo, hi, rho, x0, y0, **kw,
-                                 interpret=interpret)
+    def engines(max_iter):
+        kw = dict(sigma=1e-5, alpha=1.6, eps_abs=5e-6, eps_rel=5e-6,
+                  max_iter=max_iter, check_every=25)
+        par = LParameters(maximum_iteration=max_iter, eps_abs=5e-6,
+                          eps_rel=5e-6, sigma=1e-5, alpha=1.6, rho=0.1,
+                          check_termination=25, polish=False,
+                          scaling_iters=10, stall_checks=0)
 
-    par = LParameters(maximum_iteration=kw["max_iter"], eps_abs=5e-6,
-                      eps_rel=5e-6, sigma=1e-5, alpha=1.6, rho=0.1,
-                      check_termination=kw["check_every"], polish=False,
-                      scaling_iters=10)
+        @jax.jit
+        def plain(P, A, q, lo, hi):
+            with jax.default_matmul_precision("highest"):
+                return jax.vmap(lambda *a: admm.admm_solve(
+                    *a, params=par, eq_mask=eq))(P, A, q, lo, hi)
 
-    @jax.jit
-    def plain(P, A, q, lo, hi):
-        with jax.default_matmul_precision("highest"):
-            return jax.vmap(lambda *a: admm.admm_solve(
-                *a, params=par, eq_mask=eq))(P, A, q, lo, hi)
+        return (lambda: qip.solve_batched(
+                    P, A, q, lo, hi, x0, y0, n_eq=int(eq.sum()), **kw,
+                    interpret=interpret),
+                lambda: plain(P, A, q, lo, hi))
 
+    kernel, plain = engines(1000)
     xk, _, _, it_k, done_k, _, _ = jax.block_until_ready(kernel())
-    ref = jax.block_until_ready(plain(P, A, q, lo, hi))
+    ref = jax.block_until_ready(plain())
     ok_ref = np.asarray(ref.status) == admm.OSQP_SOLVED
     both = np.asarray(done_k) & ok_ref
     scale = 1.0 + np.abs(np.asarray(ref.x)).max(axis=-1)
     err = (np.abs(np.asarray(xk) - np.asarray(ref.x)).max(axis=-1) / scale)[both]
-    ph.value(batch=B, widths=[n, m], kernel_converged=float(np.mean(done_k)),
+    iters_k = float(np.mean(it_k))
+    iters_p = float(np.mean(np.asarray(ref.iters)))
+    ph.value(batch=B, widths=[n, m], max_iter=1000,
+             kernel_converged=float(np.mean(done_k)),
              plain_converged=float(np.mean(ok_ref)),
-             kernel_iters_mean=float(np.mean(it_k)),
-             plain_iters_mean=float(np.mean(np.asarray(ref.iters))),
+             kernel_iters_mean=iters_k, plain_iters_mean=iters_p,
              x_rel_err_mean=float(err.mean()) if err.size else None)
-    # cold first subproblems at a 5e-6 float32 tolerance: a share of both
-    # engines stops at max_iter; the kernel may trail the plain engine by
-    # at most 0.15 of the batch (first card run: 0.796 against 0.894)
+    # the kernel converges as often as the plain engine, less half a
+    # percent of the batch, and in about as many iterations (a kernel that
+    # adapted rho without the float32 bounds took a third more)
     ph.gate("kernel_converged_frac_vs_plain",
-            np.mean(done_k) - np.mean(ok_ref), -0.15, ">=")
+            np.mean(done_k) - np.mean(ok_ref), -0.005, ">=")
+    ph.gate("kernel_iters_mean_over_plain", iters_k / iters_p, 1.1)
     # where both converged, the solutions agree to the tolerance's scale
     ph.gate("x_rel_err_max_converged", err.max() if err.size else np.inf, 1e-3)
 
+    kernel, plain = engines(300)
+    jax.block_until_ready((kernel(), plain()))
     t = {"plain": [], "kernel": []}
     for _ in range(reps):
         for k in ("plain", "kernel", "kernel", "plain"):
-            _, dt = _timed(kernel if k == "kernel" else
-                           (lambda: plain(P, A, q, lo, hi)))
+            _, dt = _timed(kernel if k == "kernel" else plain)
             t[k].append(dt)
-    ph.value(solve_s_median={k: float(np.median(v)) for k, v in t.items()},
+    ph.value(solve_s_median_at_300={k: float(np.median(v)) for k, v in t.items()},
              solve_s_all=t)
     ph.finish()
 
@@ -500,7 +509,12 @@ def phase_four_lmpc(card: str, B_per: int = 16384) -> None:
 
 
 def phase_four_vdp(card: str, B_per: int = 4096) -> None:
-    """NLMPCFleet (Van der Pol) over ``make_mesh(data=4)`` against one card."""
+    """NLMPCFleet (Van der Pol) over ``make_mesh(data=4)`` against one card
+    solving each card's slice at the same local batch: the same vmapped SQP
+    at the same shape, so the commands agree to the last bits.  (A one-card
+    solve of the whole batch is another program: on an H100 the same lanes
+    solved at B=16384 and at B=4096 differ by up to 5.8e-4, while a repeated
+    B=4096 solve is bitwise equal.)"""
     import jax
     import jax.numpy as jnp
     import numpy as np
@@ -517,15 +531,18 @@ def phase_four_vdp(card: str, B_per: int = 4096) -> None:
     c, _ = bench._make_vdp(jnp.float32, bench.vdp_params())
     fleet = NLMPCFleet(c, make_mesh(data=4))
     (res, stats), t_fleet = _timed(lambda: fleet.optimize(x0, u0))
-    c1, _ = bench._make_vdp(jnp.float32, bench.vdp_params())
+    one = []
     with jax.default_device(jax.devices()[0]):
-        one, t_one = _timed(lambda: c1.optimize(x0, u0))
-    ph.value(batch=B, fleet_s_with_compile=t_fleet, one_card_s_with_compile=t_one)
-    # the local batch shape changes XLA's reduction strategies by ulps, and
-    # the float32 SQP's stopping point amplifies them: first four-card run
-    # 6.2e-4, inside the solver's own float32 accuracy (P3 against float64:
-    # 3.2e-3 max)
-    _fleet_gates(ph, stats, B, res.cmd, one.cmd, 5e-3)
+        t0 = time.perf_counter()
+        for i in range(4):
+            c1, _ = bench._make_vdp(jnp.float32, bench.vdp_params())
+            sl = slice(i * B_per, (i + 1) * B_per)
+            one.append(np.asarray(c1.optimize(x0[sl], u0[sl]).cmd))
+        t_one = time.perf_counter() - t0
+    ph.value(batch=B, fleet_s_with_compile=t_fleet,
+             one_card_slices_s_with_compile=t_one)
+    # float32 ulp-level at unit command scale; the expected value is 0.0
+    _fleet_gates(ph, stats, B, res.cmd, np.concatenate(one), 1e-6)
     ph.finish()
 
 
@@ -558,8 +575,8 @@ def phase_four_qp_sharded(card: str, B: int = 64) -> None:
                                             make_mesh(data=1, model=4), par,
                                             eq_mask=eq))
     with jax.default_device(jax.devices()[0]):
-        one, t_one = _timed(lambda: admm.admm_solve(P, A, q, l, u, par,
-                                                    eq_mask=eq))
+        one, t_one = _timed(lambda: jax.jit(
+            lambda *a: admm.admm_solve(*a, par, eq_mask=eq))(P, A, q, l, u))
     cmd = [np.asarray(qp.unpack_solution(dims, prob, s.x, c._u_meas)[1])[:, 0]
            for s in (sh, one)]
     err = np.abs(cmd[0] - cmd[1]).max()

@@ -37,6 +37,7 @@ from typing import NamedTuple, Optional, Tuple
 
 import jax
 import jax.numpy as jnp
+import numpy as np
 
 from ..types import LParameters
 from . import batched_linalg
@@ -269,23 +270,28 @@ def _polish_prep(P, A, eq_mask):
     scaled and Newton-refined, leaves the polish refinement's contraction
     near 1, and the device's own Cholesky decides on which side (on the
     H100 it diverged and every instance fell back to the unpolished
-    iterate).  So the pair is built once per configuration in float64 and
-    split into float32 words: hi = f32(Mp^-1), lo = f32(Mp^-1 - hi)."""
-    with jax.default_matmul_precision("highest"):
-        n = P.shape[0]
-        dtype = P.dtype
-        delta = _polish_delta_shared(dtype)
-        with jax.enable_x64(True):
-            f64 = jnp.float64
-            P64, A64 = P.astype(f64), A.astype(f64)
-            w_eq = eq_mask.astype(f64) / delta
-            Mp = P64 + delta * jnp.eye(n, dtype=f64) + (A64.T * w_eq) @ A64
-            inv = jax.scipy.linalg.cho_solve(
-                jax.scipy.linalg.cho_factor(Mp), jnp.eye(n, dtype=f64)
-            )
-            hi = inv.astype(dtype)
-            lo = (inv - hi.astype(f64)).astype(dtype)
+    iterate).  So the pair is built on the host in float64 NumPy and split
+    into words of the problem's dtype: hi = Mp^-1 rounded, lo = the rounded
+    remainder.  P, A and the equality rows are fixed per configuration, so
+    this runs once per prepared problem; under ``vmap`` (per-instance P and
+    A) the callback inverts the whole stack at once."""
+    n = P.shape[-1]
+    dtype = P.dtype
+    delta = _polish_delta_shared(dtype)
+
+    def host(P, A, eq):
+        P = np.asarray(P, np.float64)
+        A = np.asarray(A, np.float64)
+        w = np.asarray(eq, np.float64) / delta
+        Mp = P + delta * np.eye(n) + np.swapaxes(A, -1, -2) @ (A * w[..., None])
+        inv = np.linalg.inv(Mp)
+        hi = inv.astype(dtype)
+        lo = (inv - hi).astype(dtype)
         return hi, lo
+
+    out = jax.ShapeDtypeStruct(P.shape, dtype)
+    return jax.pure_callback(host, (out, out), P, A, eq_mask,
+                             vmap_method="expand_dims")
 
 
 def _build_kkt_inverse(P, A, rho_vec, sigma, axis_rows=None):

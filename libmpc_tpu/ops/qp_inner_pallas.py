@@ -16,13 +16,19 @@ programs run in any order and each one stops as soon as its own instances
 have converged.  Matrix rows and columns are selected with masked
 reductions (Triton has no register indexing), and all arithmetic is
 float32 multiply-and-reduce: no tensor-core (TF32) rounding enters.
+Division is Triton's float32 ``div.full`` (within 2 ulp); an IEEE
+``div.rn``/``sqrt.rn`` build was slower on the card and converged no more
+often (PERF.md).
 
-Algorithm (identical to ops/admm.py's ``one_iteration``, reference OSQP
-v0.6.3 / LOptimizer.hpp): x-update through the explicit KKT inverse with
-one refinement pass, over-relaxation ``alpha``, box projection, exact-zero
-inactive duals, adaptive rho per instance.  The inverse is an in-place
-Gauss-Jordan sweep, which needs no pivoting on the SPD KKT matrix.  Ruiz
-equilibration runs once per problem in XLA before the kernel.
+Algorithm (identical to ops/admm.py's ``one_iteration`` and the adaptive
+rho of its ``termination_check``, reference OSQP v0.6.3 / LOptimizer.hpp):
+x-update through the explicit KKT inverse with one refinement pass,
+over-relaxation ``alpha``, box projection, exact-zero inactive duals, and a
+scalar rho per instance inside the float32 bounds of ``admm._rho_bounds``,
+expanded to rows as ``admm._rho_vec_of`` does (equality rows boosted, loose
+rows at the minimum).  The inverse is an in-place Gauss-Jordan sweep, which
+needs no pivoting on the SPD KKT matrix.  Ruiz equilibration runs once per
+problem in XLA before the kernel.
 """
 
 from __future__ import annotations
@@ -34,7 +40,13 @@ import jax.numpy as jnp
 from jax.experimental import pallas as pl
 from jax.experimental.pallas import triton as plt
 
-INF_BOUND = 1e18
+from .admm import (
+    ADAPTIVE_RHO_TOLERANCE, INF_BOUND, RHO_EQ_OVER_RHO_INEQ, RHO_MIN,
+    _ruiz_equilibration,
+)
+
+# float32 rho bounds of ops/admm.py's _rho_bounds
+_RHO_LO, _RHO_HI = 1e-3, 1e3
 # instances per program and warps per program, chosen on the card at the
 # Van der Pol widths: one instance on one warp was fastest of (1, 1),
 # (1, 2), (1, 4), (2, 2), (2, 4), (4, 4), (4, 8) (PERF.md)
@@ -56,10 +68,11 @@ def supported(n: int, m: int) -> bool:
 
 
 def _kernel(
-    P_ref, A_ref, q_ref, l_ref, u_ref, rho_ref, x0_ref, y0_ref,
+    P_ref, A_ref, q_ref, l_ref, u_ref, loose_ref, x0_ref, y0_ref,
     dinv_ref, einv_ref, cinv_ref,
     x_out, y_out, z_out, meta_out,
-    *, sigma, alpha, eps_abs, eps_rel, n_blocks, check_every, refine,
+    *, n_eq, rho, sigma, alpha, eps_abs, eps_rel, n_blocks, check_every,
+    refine,
 ):
     f1 = jnp.float32
     P = P_ref[...]  # (T, n, n)
@@ -70,6 +83,7 @@ def _kernel(
     dinv = dinv_ref[...]
     einv = einv_ref[...]
     cinv = cinv_ref[...]  # (T, 1)
+    loose = loose_ref[...] > 0.5  # (T, m)
     T, m, n = A.shape
     i_n = jax.lax.broadcasted_iota(jnp.int32, (1, n), 1)
     i_m = jax.lax.broadcasted_iota(jnp.int32, (1, m), 1)
@@ -77,6 +91,10 @@ def _kernel(
     col_n = jax.lax.broadcasted_iota(jnp.int32, (1, n, n), 2)
     row_m = jax.lax.broadcasted_iota(jnp.int32, (1, m, n), 1)
     eye = (row_n == col_n).astype(f1)
+
+    def rho_vec_of(rs):  # (T, 1) per-instance rho -> (T, m) row penalties
+        rv = jnp.where(i_m < n_eq, RHO_EQ_OVER_RHO_INEQ * rs, rs)
+        return jnp.where(loose, RHO_MIN, rv)
 
     def mv(Mat, v):  # (T, r, c) @ (T, c) -> (T, r)
         return jnp.sum(Mat * v[:, None, :], axis=2)
@@ -112,8 +130,9 @@ def _kernel(
         return M, jax.lax.fori_loop(0, n, sweep, M)
 
     def block(c):
-        k, x, z, y, rho, M, Minv, done, iters, pri, dua = c
+        k, x, z, y, rs, M, Minv, done, iters, pri, dua = c
         act = done == 0
+        rho = rho_vec_of(rs)
 
         def one_iter(_, xzy):
             x, z, y = xzy
@@ -150,42 +169,46 @@ def _kernel(
             dua <= eps_abs + eps_rel * dua_rel
         )
         iters = iters + jnp.where(act, check_every, 0)
-        # adaptive rho (OSQP 5.2): scale the per-row rho vector by
-        # sqrt(scaled-primal / scaled-dual residual) per instance; refactor
-        # only when some active, unconverged instance moves by more than 5x
-        tiny = 1e-30
-        ratio = jnp.sqrt(
-            (pri / jnp.maximum(pri_rel, tiny))
-            / jnp.maximum(dua / jnp.maximum(dua_rel, tiny), tiny)
+        # adaptive rho (OSQP 5.2), as admm.termination_check: the
+        # per-instance estimate rho * sqrt(scaled primal / scaled dual
+        # residual), clipped to the float32 bounds; refactor only when some
+        # active, unconverged instance moves by more than the tolerance
+        ratio = jnp.sqrt(jnp.clip(
+            (pri / jnp.maximum(pri_rel, 1e-12))
+            / jnp.maximum(dua / jnp.maximum(dua_rel, 1e-12), 1e-12),
+            1e-10, 1e10,
+        ))
+        ratio = jnp.where(ratio == ratio, ratio, 1.0)  # NaN -> 1
+        rho_est = jnp.clip(rs * ratio, _RHO_LO, _RHO_HI)
+        adapt = act & ~conv & (
+            (rho_est > rs * ADAPTIVE_RHO_TOLERANCE)
+            | (rho_est < rs / ADAPTIVE_RHO_TOLERANCE)
         )
-        ratio = jnp.minimum(jnp.maximum(ratio, 1e-4), 1e4)
-        adapt = act & ~conv & ((ratio > 5.0) | (ratio < 0.2))
 
         def refactor(ops):
-            rho, _, _ = ops
-            rho = jnp.where(adapt, rho * ratio, rho)
-            rho = jnp.minimum(jnp.maximum(rho, 1e-6), 1e6)
-            M, Minv = factorize(rho)
-            return rho, M, Minv
+            rs, _, _ = ops
+            rs = jnp.where(adapt, rho_est, rs)
+            M, Minv = factorize(rho_vec_of(rs))
+            return rs, M, Minv
 
-        rho, M, Minv = jax.lax.cond(
+        rs, M, Minv = jax.lax.cond(
             jnp.max(adapt.astype(jnp.int32)) > 0, refactor, lambda ops: ops,
-            (rho, M, Minv),
+            (rs, M, Minv),
         )
         done = jnp.where(conv, 1, done)
-        return k + 1, x, z, y, rho, M, Minv, done, iters, pri, dua
+        return k + 1, x, z, y, rs, M, Minv, done, iters, pri, dua
 
     def cond(c):
         k, done = c[0], c[7]
         return (k < n_blocks) & (jnp.min(done) == 0)
 
-    rho = rho_ref[...]
-    M, Minv = factorize(rho)
+    rs = jnp.full((T, 1), min(max(rho, _RHO_LO), _RHO_HI), f1)
+    M, Minv = factorize(rho_vec_of(rs))
     x = x0_ref[...]
     y = y0_ref[...]
     zero = jnp.zeros((T, 1), f1)
     init = (
-        jnp.int32(0), x, mv(A, x), y, rho, M, Minv,
+        jnp.int32(0), x, mv(A, x), y, rs, M, Minv,
         jnp.zeros((T, 1), jnp.int32), jnp.zeros((T, 1), jnp.int32), zero, zero,
     )
     _, x, z, y, _, _, _, done, iters, pri, dua = jax.lax.while_loop(
@@ -204,34 +227,30 @@ def _kernel(
 @functools.partial(
     jax.jit,
     static_argnames=(
-        "sigma", "alpha", "eps_abs", "eps_rel", "max_iter", "check_every",
-        "refine", "ruiz_iters", "tile", "num_warps", "interpret",
+        "n_eq", "rho", "sigma", "alpha", "eps_abs", "eps_rel", "max_iter",
+        "check_every", "refine", "ruiz_iters", "tile", "num_warps",
+        "interpret",
     ),
 )
 def solve_batched(
-    P, A, q, l, u, rho_vec, x0, y0,
-    *, sigma=1e-5, alpha=1.6, eps_abs=5e-6, eps_rel=5e-6,
+    P, A, q, l, u, x0, y0,
+    *, n_eq=0, rho=0.1, sigma=1e-5, alpha=1.6, eps_abs=5e-6, eps_rel=5e-6,
     max_iter=500, check_every=25, refine=True, ruiz_iters=10,
     tile=TILE_B, num_warps=NUM_WARPS, interpret=False,
 ):
     """Solve a batch of small dense QPs in one fused kernel.
 
-    Args (batch axis leading): P (B,n,n), A (B,m,n), q (B,n), l/u/rho_vec
-    (B,m), warm starts x0 (B,n), y0 (B,m) — all UNSCALED.  Ruiz
+    Args (batch axis leading): P (B,n,n), A (B,m,n), q (B,n), l/u (B,m),
+    warm starts x0 (B,n), y0 (B,m) — all UNSCALED.  The first ``n_eq``
+    rows are equalities; ``rho`` is the initial penalty.  Ruiz
     equilibration runs here in XLA (once per problem, batched ops), the
     kernel iterates on the scaled problem and applies the stopping test to
     unscaled residuals, and the returned (x, y, z, iters, done, pri, dua)
     are unscaled with the batch axis leading.
 
-    ``rho_vec`` carries the per-row penalty (equality rows boosted, loose
-    rows at the minimum — ops/admm.py's ``_rho_vec_of`` semantics, computed
-    by the caller from masks, which are scale-invariant).
-
     The kernel compiles for the GPU through Triton; ``interpret=True`` runs
     it in the Pallas interpreter instead (tests on the CPU).
     """
-    from .admm import _ruiz_equilibration
-
     B, n = q.shape
     m = A.shape[1]
     dtype = jnp.float32
@@ -251,6 +270,7 @@ def solve_batched(
     A = A * e[:, :, None] * d[:, None, :]
     q = cb * q * d
     l = e * jnp.maximum(l.astype(dtype), -INF_BOUND)
+    loose = ((l <= -INF_BOUND) & (u >= INF_BOUND)).astype(dtype)
     u = e * jnp.minimum(u.astype(dtype), INF_BOUND)
     # warm starts into scaled space: xbar = x/d, ybar = c*y/e
     x0 = x0.astype(dtype) / d
@@ -271,14 +291,13 @@ def solve_batched(
         jnp.pad(v, ((0, 0), (0, dn)), constant_values=cv)
         for v, cv in ((q, 0.0), (x0, 0.0), (dinv, 1.0))
     )
-    l, u, y0 = (jnp.pad(v, ((0, 0), (0, dm))) for v in (l, u, y0))
-    rho_p = jnp.pad(rho_vec.astype(dtype), ((0, 0), (0, dm)), constant_values=1.0)
+    l, u, y0, loose = (jnp.pad(v, ((0, 0), (0, dm))) for v in (l, u, y0, loose))
     einv_p = jnp.pad(einv, ((0, 0), (0, dm)), constant_values=1.0)
 
     # pad the batch to whole tiles by edge-replicating the last instance, so
     # pad lanes solve a well-posed problem and converge with their tile
     Bp = -(-B // tile) * tile
-    args = [P, A, q, l, u, rho_p, x0, y0, dinv_p, einv_p, cinv]
+    args = [P, A, q, l, u, loose, x0, y0, dinv_p, einv_p, cinv]
     if Bp > B:
         args = [
             jnp.concatenate(
@@ -293,7 +312,8 @@ def solve_batched(
         )
 
     kern = functools.partial(
-        _kernel, sigma=float(sigma), alpha=float(alpha),
+        _kernel, n_eq=int(n_eq), rho=float(rho), sigma=float(sigma),
+        alpha=float(alpha),
         eps_abs=float(eps_abs), eps_rel=float(eps_rel),
         n_blocks=max(1, -(-int(max_iter) // int(check_every))),
         check_every=int(check_every), refine=bool(refine),
@@ -330,7 +350,7 @@ def solve_batched(
 
 @functools.lru_cache(maxsize=None)
 def make_inner_qp_solver(
-    sigma=1e-5, alpha=1.6, eps_abs=5e-6, eps_rel=5e-6,
+    n_eq=0, rho=0.1, sigma=1e-5, alpha=1.6, eps_abs=5e-6, eps_rel=5e-6,
     max_iter=500, check_every=25, interpret=False,
 ):
     """A per-instance QP solve whose ``vmap`` is the fused batched kernel.
@@ -343,15 +363,15 @@ def make_inner_qp_solver(
     a batch of one, so batched and unbatched numerics are identical.
     """
     kw = dict(
-        sigma=sigma, alpha=alpha, eps_abs=eps_abs, eps_rel=eps_rel,
+        n_eq=n_eq, rho=rho, sigma=sigma, alpha=alpha, eps_abs=eps_abs, eps_rel=eps_rel,
         max_iter=max_iter, check_every=check_every, interpret=interpret,
     )
 
     @jax.custom_batching.custom_vmap
-    def solve(P, A, q, l, u, rho_vec, x0, y0):
+    def solve(P, A, q, l, u, x0, y0):
         outs = solve_batched(
-            P[None], A[None], q[None], l[None], u[None], rho_vec[None],
-            x0[None], y0[None], **kw,
+            P[None], A[None], q[None], l[None], u[None], x0[None], y0[None],
+            **kw,
         )
         return tuple(o[0] for o in outs)
 

@@ -49,7 +49,9 @@ _MAX_LS_FAILS = 4
 _MAX_STALL = 6
 _ARMIJO_C1 = 1e-4
 # second-order correction: a dense Cholesky solve of Je Je' up to this many
-# equality rows, matrix-free CG beyond (not measured on the H100)
+# equality rows, matrix-free CG beyond.  On an H100 the dense solve was the
+# faster at 20 rows (0.38 vs 0.48 ms, B=4096) and CG from 60 rows up (0.45
+# vs 0.51 ms at 60, 1.24 vs 1.34 ms at 240, B=256), PERF.md
 _SOC_DENSE_MAX_ROWS = 52
 
 
@@ -107,7 +109,9 @@ def _qp_params(f32: bool = False) -> LParameters:
     float32 runs get reachable tolerances (1e-9 is below the f32 noise
     floor and would force every subproblem to max-iter).  The polish is the
     per-instance dense one: every subproblem has its own P and A, so the
-    shared-factorization polish would share nothing."""
+    shared-factorization polish would share nothing, and its float64 base
+    inverse is built on the host (4096 Van der Pol subproblems on an H100:
+    35 ms dense against 236 ms shared, same solved share)."""
     if f32:
         return LParameters(
             maximum_iteration=500,
@@ -280,6 +284,8 @@ def _sqp_solve_hp(
     if use_fused:
         # the whole inner-QP batch in one fused kernel per SQP iteration
         fused_solve = qp_inner_pallas.make_inner_qp_solver(
+            n_eq=me,
+            rho=qp_par.rho,
             sigma=1e-5,
             alpha=qp_par.alpha,
             eps_abs=max(qp_par.eps_abs, 5e-6),
@@ -600,19 +606,15 @@ def _sqp_solve_hp(
             qp_y_new = s.qp_y
         elif use_fused:
             # fused Pallas ADMM: the whole batch of inner QPs solves in one
-            # kernel launch (ops/qp_inner_pallas.py) — host-side Ruiz, in-
-            # kernel Cholesky + iteration loop + adaptive rho
+            # kernel launch (ops/qp_inner_pallas.py) — Ruiz in XLA, KKT
+            # inverse, iteration loop and adaptive rho in the kernel
             A_qp = jnp.concatenate([Je, Ji, jnp.eye(nz, dtype=dtype)], axis=0)
             l_qp = jnp.concatenate(
                 [-ce, jnp.full((mi,), -jnp.inf, dtype), finite_lb - s.z]
             )
             u_qp = jnp.concatenate([-ce, -ci, finite_ub - s.z])
-            loose = (l_qp <= -1e18) & (u_qp >= 1e18)
-            rho_v = admm._rho_vec_of(
-                jnp.asarray(qp_par.rho, dtype), eq_mask, loose
-            )
             x_f, y_f, _zf, _qi, _qd, _qp, _qdu = fused_solve(
-                B, A_qp, g, l_qp, u_qp, rho_v, s.qp_x, s.qp_y
+                B, A_qp, g, l_qp, u_qp, s.qp_x, s.qp_y
             )
             qp_ok = jnp.all(jnp.isfinite(x_f)) & jnp.all(jnp.isfinite(y_f))
             d = jnp.where(qp_ok, x_f, 0.0)

@@ -265,6 +265,87 @@ class TestPolish:
         assert errs[4] < 1e-4
         assert errs[8] <= errs[4] <= errs[0]
 
+    @pytest.mark.parametrize("dtype", [jnp.float32, jnp.float64])
+    def test_polish_prep_pair_is_the_f64_inverse(self, dtype):
+        """hi + lo carries the float64 inverse of Mp past the precision of
+        one float32 word, and the vmapped call equals the per-instance
+        calls."""
+        rng = np.random.default_rng(7)
+        B, n, m, me = 3, 6, 9, 2
+        Ps, As = [], []
+        for _ in range(B):
+            P, A, *_ = random_qp(rng, n, m)
+            Ps.append(P)
+            As.append(A)
+        P = jnp.asarray(np.stack(Ps), dtype)
+        A = jnp.asarray(np.stack(As), dtype)
+        eq = jnp.arange(m) < me
+        hi, lo = jax.jit(jax.vmap(admm._polish_prep, (0, 0, None)))(P, A, eq)
+        delta = admm._polish_delta_shared(dtype)
+        for b in range(B):
+            P64 = np.asarray(P[b], np.float64)
+            A64 = np.asarray(A[b], np.float64)
+            Mp = P64 + delta * np.eye(n) + A64[:me].T @ A64[:me] / delta
+            pair = np.asarray(hi[b], np.float64) + np.asarray(lo[b], np.float64)
+            # the residual of a float64 inverse at condition ~1/delta^2;
+            # a single float32 word alone leaves ~1e-4
+            assert np.abs(Mp @ pair - np.eye(n)).max() < 1e-7
+            h1, l1 = admm._polish_prep(P[b], A[b], eq)
+            assert np.array_equal(np.asarray(h1), np.asarray(hi[b]))
+            assert np.array_equal(np.asarray(l1), np.asarray(lo[b]))
+
+    def test_shared_polish_vmapped_in_while_loop_without_x64(self):
+        """A float32 user with x64 off: the shared polish under vmap of a
+        while_loop (the SQP's shape) traces, compiles and stays float32."""
+        import os
+        import subprocess
+        import sys
+        import textwrap
+
+        repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+        script = textwrap.dedent("""
+            import numpy as np, jax, jax.numpy as jnp
+            from libmpc_tpu.ops import admm
+            from libmpc_tpu.types import LParameters
+            assert not jax.config.read("jax_enable_x64")
+            rng = np.random.default_rng(0)
+            B, n, me = 4, 6, 2
+            m = me + n
+            Q = rng.normal(size=(B, n, n))
+            P = Q @ np.swapaxes(Q, 1, 2) / n + np.eye(n)
+            A = np.concatenate([rng.normal(size=(B, me, n)),
+                                np.broadcast_to(np.eye(n), (B, n, n))], 1)
+            q = rng.normal(size=(B, n))
+            l = np.concatenate([np.zeros((B, me)), -np.ones((B, n))], 1)
+            u = np.concatenate([np.zeros((B, me)), np.ones((B, n))], 1)
+            P, A, q, l, u = (jnp.asarray(v, jnp.float32)
+                             for v in (P, A, q, l, u))
+            eq = jnp.arange(m) < me
+            par = LParameters(polish=True, polish_mode="shared")
+
+            def one(P, A, q, l, u):
+                def body(c):
+                    k, x = c
+                    sol = admm.admm_solve(P, A, q + 0.1 * x, l, u,
+                                          params=par, eq_mask=eq)
+                    return k + 1, sol.x.reshape(n)
+                return jax.lax.while_loop(
+                    lambda c: c[0] < 2, body,
+                    (0, jnp.zeros((n,), jnp.float32)))[1]
+
+            x = jax.jit(jax.vmap(one))(P, A, q, l, u)
+            assert x.dtype == jnp.float32 and x.shape == (B, n)
+            assert np.isfinite(np.asarray(x)).all()
+            print("OK")
+        """)
+        env = dict(os.environ, JAX_PLATFORMS="cpu", JAX_ENABLE_X64="0",
+                   PYTHONPATH=repo)
+        out = subprocess.run([sys.executable, "-c", script], cwd=repo,
+                             env=env, capture_output=True, text=True,
+                             timeout=300)
+        assert out.returncode == 0, out.stderr[-2000:]
+        assert out.stdout.strip().endswith("OK")
+
 
 class TestStragglerCompaction:
     def test_compaction_matches_lockstep(self):
